@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -20,13 +20,48 @@ Phases (any failure raises and the exit code is not 0):
      f32 rows within 1e-6 on every lane), then ``render.render`` at 64 spp
      with the fixed chain and with ``regen``, each with its launch count,
      0 non-finite lane samples, PSNR / mean of the fixed chain against
-     tests/goldens/box_1024x768_128.npz and regen against the fixed chain.
-The kernel sources (csrc/traverse.cu, csrc/megakernel.cu) build in parallel
-in phase 1.  The line before the last is a JSON record of the kernels; the
-last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
+     tests/goldens/box_1024x768_128.npz and regen against the fixed chain;
+  6. the instanced city (``scene.synth.instanced_city_scene(n_blocks=32,
+     subdiv=3, ground_subdiv=32, width=1024, height=1024, depth=5,
+     accel='stream_tlas')``) through the two-level kernel (K4): the kernel
+     against its plain version on the camera rays' nearest hit, bounce 0's
+     shadow any-hit and the Morton-sorted first-bounce rays' nearest hit,
+     all 1,048,576 lanes each (hit flags and instance ids, t where the
+     triangle is the same, equal-t pairs counted); ``render.render`` at 16
+     spp; the same city flattened (``accel='stream'``, K2/K3) at 16 spp with
+     the same seeds: PSNR >= 35 dB, means within 2%, the share of pixels
+     equal to 1e-3, the device memory of both builds; and the 48-block
+     instanced city built under ``accel='auto'`` (must go two-level);
+  7. the mid-size city (``scene.synth.city_scene(n_blocks=40, width=1024,
+     height=1024, depth=5, textured=True)``, 152,194 triangles, routed to
+     the cluster kernel K5 by ``'auto'``): the kernel against its plain
+     version on the same three queries (unsorted), ``render.render`` at 16
+     spp, and the same scene streamed at 16 spp: PSNR >= 35 dB, means within
+     2%;
+  8. the cell-pass wavefront (K6): ``intersect_dda`` on the bench city's
+     camera rays (nearest, against phase 3's plain result) and on bounce 0's
+     shadow rays (any-hit), over a grid without outliers: rounds, lanes left
+     live, milliseconds per round.  No renderer path calls ``intersect_dda``,
+     so this query is its main path: its launches are counted here.
+Every kernel's ``bound_ms`` is the larger of its bytes (rays and outputs
+once, each table once) over 3.35 TB/s and its operations over 67 TFLOP/s
+(f32 outside the tensor cores); the ray-query kernels' operations are
+counted by a second build of csrc/traverse.cu (``-DHC3_COUNT``, loaded by
+this script alone) run on the very query that is timed: what this kernel's
+own walk did, not the least a query needs
+(box tests x 25, Woop tests x 45 or Moller-Trumbore tests x 52, instance
+entries x 36, grid cells x 20 operations), K1's as the first bounce's two
+brute traces of every lane (a floor: lanes that live on do more).  No
+single PyTorch call computes a ray query or a path-traced sample, so
+``library_ms`` is null throughout.  The kernel sources (csrc/traverse.cu,
+its counting build, csrc/megakernel.cu) build in parallel in phase 1;
+nothing of an earlier phase was cut.  The line before the last is a JSON record of the kernels;
+the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
 network.
 """
 import concurrent.futures
+import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -38,10 +73,23 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 AGREE_MIN = 0.999
+UV_TOL = 1e-4
 PSNR_MIN = 35.0
 MEAN_TOL = 0.02
 REGEN_PSNR_MIN = 30.0
 BOX_SPP = 64
+# the card's published peaks: HBM bytes/s, f32 FLOP/s outside tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+# f32 operations of one test, as the kernels write them (adds, multiplies,
+# divides, min/max and compares each count one)
+SLAB_OPS = 25      # 6 sub, 6 mul, 12 min/max, 1 compare
+WOOP_OPS = 45      # 3 affine rows x (3 mul + 3 add) + 3 x (3 mul + 2 add),
+#                    1 div, 1 neg, 2 x (mul + add), u + v, 5 compares
+MT_OPS = 52        # 2 cross products, 4 dot products, 1 div, 3 sub,
+#                    3 scalings, 7 compares
+XFORM_OPS = 36     # ray into object space: 18 mul, 15 add, 3 div
+CELL_OPS = 20      # cell exit planes and the step
 
 
 def log(msg):
@@ -73,25 +121,71 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def compare(name, kernel, plain):
-    """Kernel vs plain: the share of rays whose hit flag agrees and, where
-    both hit, whose t agrees to rtol 2e-4; max |dt| where both report the
-    same triangle."""
-    kt, ktri = kernel[0].cpu().numpy(), kernel[1].cpu().numpy()
-    pt, ptri = plain[0].cpu().numpy(), plain[1].cpu().numpy()
-    kh, ph = ktri >= 0, ptri >= 0
-    both = kh & ph
-    t_ok = np.isclose(kt[both], pt[both], rtol=2e-4, atol=1e-5)
-    agree = float((kh == ph).mean() * (t_ok.mean() if both.any() else 1.0))
-    same = both & (ktri == ptri)
-    err = float(np.abs(kt[same] - pt[same]).max()) if same.any() else 0.0
-    log(f'  {name}: hits {int(kh.sum())}/{len(kh)} agree {agree:.6f} '
-        f'tri-equal {float(same.sum()) / max(int(both.sum()), 1):.6f} '
-        f'max|dt| {err:.3e}')
-    if agree < AGREE_MIN:
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
+    and operations over its f32 rate."""
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+@contextlib.contextmanager
+def counted(TST, count_lib):
+    """Inside the block the ray-query wrappers launch the counting build of
+    csrc/traverse.cu (``-DHC3_COUNT``) in place of the shipped one; the
+    list the block is given then receives what the lanes did in it: box
+    tests, triangle tests, instances entered, grid cells visited."""
+    shipped = TST.kernel_library()
+    out = []
+    TST.launch_checked('hc3_counts_reset', count_lib.hc3_counts_reset())
+    TST._lib = count_lib
+    try:
+        yield out
+    finally:
+        TST._lib = shipped
+    torch.cuda.synchronize()
+    buf = (ctypes.c_uint64 * 4)()
+    TST.launch_checked('hc3_counts_read', count_lib.hc3_counts_read(buf))
+    out.extend(int(c) for c in buf)
+
+
+def ray_query_bound(counts, n_rays, out_words, tables, tri_ops=WOOP_OPS):
+    """Bound of one ray query: rays (32 bytes) and outputs once, each table
+    once; the operations its counted launch reported."""
+    slab, tri, inst, cell = counts
+    ops = (slab * SLAB_OPS + tri * tri_ops + inst * XFORM_OPS
+           + cell * CELL_OPS)
+    moved = n_rays * (32 + 4 * out_words) + nbytes(*tables)
+    ms, by = bound(moved, ops)
+    return ms, by, dict(box_tests=slab, tri_tests=tri, instances=inst,
+                        cells=cell, bytes=moved, operations=ops)
+
+
+def compare(name, kernel, plain, any_hit=False):
+    """Kernel vs plain on every lane (``traverse_stream.hits_agree``): the
+    hit flags and, where both hit, t to rtol 2e-4 must agree on AGREE_MIN
+    of the lanes, the triangle on AGREE_MIN of the both-hit lanes, and the
+    barycentrics u and v to UV_TOL on every lane where both report the
+    same triangle.  Returns max |dt| over those lanes."""
+    from hydracore3_torch.accel.traverse_stream import hits_agree
+    a = hits_agree(kernel, plain, any_hit)
+    agree = a['hit_eq'] * a['t_ok']
+    hits = int((kernel[1] >= 0).sum())
+    log(f'  {name}: hits {hits}/{kernel[1].numel()} agree {agree:.6f} '
+        f'tri-equal {a["tri_eq"]:.6f} max|dt| {a["max_dt"]:.3e} '
+        f'max|du|,|dv| {a["max_duv"]:.3e}')
+    if agree < AGREE_MIN or a['tri_eq'] < AGREE_MIN:
         raise RuntimeError(f'{name}: kernel and plain agree on {agree:.6f} '
-                           f'< {AGREE_MIN}')
-    return err
+                           f'of lanes and on the triangle of '
+                           f'{a["tri_eq"]:.6f} of hits < {AGREE_MIN}')
+    if a['max_duv'] > UV_TOL:
+        raise RuntimeError(f'{name}: u, v off by {a["max_duv"]:.3e} > '
+                           f'{UV_TOL} on a lane with the same triangle')
+    return a['max_dt']
 
 
 def psnr_mean(img, gold):
@@ -126,10 +220,13 @@ def main():
     sys.path.insert(0, REPO)
     from hydracore3_torch import render as R
     from hydracore3_torch.accel import traverse_dda as TDD
+    from hydracore3_torch.accel import traverse_pallas as TPL
     from hydracore3_torch.accel import traverse_stream as TST
+    from hydracore3_torch.accel import traverse_tlas as TT
     from hydracore3_torch.models import integrator_pt as IPT
     from hydracore3_torch.models import megakernel as MK
     from hydracore3_torch.ops import rng as RNG
+    from hydracore3_torch.scene import build as B
     from hydracore3_torch.scene import synth
 
     dev = torch.device('cuda:0')
@@ -146,13 +243,18 @@ def main():
         f'python {sys.version.split()[0]}')
     # one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(f) for f in (TST.build_kernels,
-                                           MK.build_kernels)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(f) for f in (
+            TST.build_kernels, MK.build_kernels,
+            lambda: TST.load_library(('HC3_COUNT',)))]
         build_s = [b.result() for b in builds]
+    count_lib, count_s = build_s[2]
     log(f'[1] kernels built from hydracore3_torch/csrc/traverse.cu '
-        f'({build_s[0]:.2f} s) and csrc/megakernel.cu ({build_s[1]:.2f} s) '
-        f'in {time.perf_counter() - t0:.2f} s; K1 {MK.kernel_attrs()}')
+        f'({build_s[0]:.2f} s; its counting build {count_s:.2f} s) and '
+        f'csrc/megakernel.cu ({build_s[1]:.2f} s) in '
+        f'{time.perf_counter() - t0:.2f} s; K1 {MK.kernel_attrs()}')
+    log(f'  registers, spill bytes of K2-K6: {TST.kernel_attrs()}')
+    log(f'  of the counting build: {TST.kernel_attrs(count_lib)}')
 
     # ---- 2. the bench city on the card --------------------------------------
     t0 = time.perf_counter()
@@ -175,11 +277,12 @@ def main():
     # sorted first-bounce rays' nearest hit.
     N = meta.width * meta.height
     woop = scene.st_woop
-    stream = lambda *q, any_hit=False: TST.intersect_stream(  # noqa: E731
-        scene.st_nodes_f, scene.st_nodes_i, woop, *q, any_hit=any_hit)
-    march = lambda *q: TDD.intersect_march(  # noqa: E731
-        scene.st_grid, woop, *q, with_unresolved=True)
+    stream = lambda *q, **kw: TST.intersect_stream(  # noqa: E731
+        scene.st_nodes_f, scene.st_nodes_i, woop, *q, **kw)
+    march = lambda *q, **kw: TDD.intersect_march(  # noqa: E731
+        scene.st_grid, woop, *q, with_unresolved=True, **kw)
     errs = {'intersect_stream': 0.0, 'intersect_march': 0.0}
+    bounds = {}
     unresolved = 0
 
     def check_nearest(label, state):
@@ -199,13 +302,13 @@ def main():
         errs['intersect_stream'] = max(errs['intersect_stream'], compare(
             f'K2 intersect_stream nearest, {label}', ks, plain))
         log(f'  {label}: {int(live.sum())} live rays; plain {p_ms:.3f} ms')
-        return q, km, ks, p_ms
+        return q, km, ks, p_ms, plain
 
     log(f'[3] kernels vs plain on the first bounce of the pass, {N} lanes')
     pix_all = torch.arange(N, device=dev)
     st = IPT.kernel_init_eye_ray(scene, meta, RNG.gen_init(pix_all), pix_all)
-    cam_q, (mt, mtri, _, _), (wt, wtri, _, _), cam_plain_ms = check_nearest(
-        'camera', st)
+    (cam_q, (mt, mtri, _, _), (wt, wtri, _, _), cam_plain_ms,
+     cam_plain) = check_nearest('camera', st)
 
     # trace parity (bench.py:90-106): march against walk, all camera rays
     mh, wh = (mtri >= 0).cpu().numpy(), (wtri >= 0).cpu().numpy()
@@ -223,14 +326,14 @@ def main():
                                    st.hit_norm, st.hit_tang, st.hit_uv)
     _, _, _, rays = IPT.sample_shadow_rays(scene, meta, st)
     _, *shadow_q = IPT.sorted_shadow_query(scene.st_grid, rays)
-    plain, shadow_plain_ms = timed(lambda: TST.intersect_plain(
+    shadow_plain, shadow_plain_ms = timed(lambda: TST.intersect_plain(
         woop, *shadow_q[:3], torch.clamp(shadow_q[3], max=0.99 * TST.FLT_MAX),
         any_hit=True))
     errs['intersect_stream'] = max(errs['intersect_stream'], compare(
         'K2 intersect_stream any-hit, shadow', stream(*shadow_q, any_hit=True),
-        plain))
+        shadow_plain, any_hit=True))
     log(f'  shadow: {int(rays.need_trace.sum())} traced rays, '
-        f'{int((plain[1] >= 0).sum())} occluded; plain '
+        f'{int((shadow_plain[1] >= 0).sum())} occluded; plain '
         f'{shadow_plain_ms:.3f} ms')
 
     # the first-bounce rays, sorted as trace_pass sorts them for bounce 1
@@ -238,7 +341,7 @@ def main():
     st = IPT.kernel_next_bounce(scene, meta, st._replace(rng=rng2), 0, shade,
                                 ctx)
     st, _ = IPT._sort_rays_for_trace(st, pix_all, scene.st_grid)
-    bounce_q, _, _, bounce_plain_ms = check_nearest('bounce', st)
+    bounce_q, _, _, bounce_plain_ms, _ = check_nearest('bounce', st)
     log(f'  unresolved march lanes: {unresolved}')
     if unresolved:
         raise RuntimeError(f'{unresolved} march lanes left unresolved')
@@ -258,6 +361,20 @@ def main():
     for label, q in (('camera', cam_q), ('bounce', bounce_q)):
         log(f'  K2 nearest, {label}: {cuda_ms(lambda: stream(*q), 10):.3f} '
             f'ms')
+    # the bounds of the two timed queries, from their counted launches
+    g = scene.st_grid
+    with counted(TST, count_lib) as c:
+        stream(*shadow_q, any_hit=True)
+    bounds['intersect_stream'] = ray_query_bound(
+        c, N, 4, (scene.st_nodes_f, scene.st_nodes_i, woop))
+    with counted(TST, count_lib) as c:
+        march(*cam_q)
+    bounds['intersect_march'] = ray_query_bound(
+        c, N, 5, (g.cell_tab, g.cell_cl, g.cl_aabb, g.cl_count, g.outliers,
+                  woop))
+    for name in ('intersect_stream', 'intersect_march'):
+        log(f'  {name}: bound {bounds[name][0]:.4f} ms by {bounds[name][1]} '
+            f'{bounds[name][2]}')
 
     # ---- 4. the slice: render.render at 16 spp ------------------------------
     spp = 16
@@ -314,6 +431,21 @@ def main():
     ms['mega_sample'] = cuda_ms(lambda: MK.sample_pass(pk, xy, su, depth), 10)
     ms['mega_regen'] = cuda_ms(
         lambda: MK.regen_pass(pk, xy, sf, su_r, it, depth), 10)
+    # K1's bound: lane inputs and outputs and the tables once; as
+    # operations the first bounce's nearest and shadow brute traces of
+    # every lane over the padded soup (a floor: lanes that live on do more,
+    # and shading is not counted); a regen launch does that ``it`` times
+    n_lanes = xy.shape[1]
+    tables = (pk.woop, pk.shade, pk.mat, pk.light, pk.tex, pk.consts,
+              pk.texels)
+    trace_ops = n_lanes * 2 * pk.n_tris * WOOP_OPS
+    for name, io, reps in (('mega_sample', (xy, su) + tuple(k_fixed), 1),
+                           ('mega_regen', (xy, sf, su_r) + tuple(k_regen),
+                            it)):
+        b_ms, by = bound(nbytes(*io, *tables), trace_ops * reps)
+        bounds[name] = (b_ms, by, dict(operations=trace_ops * reps,
+                                       bytes=nbytes(*io, *tables)))
+        log(f'  {name}: bound {b_ms:.4f} ms by {by} {bounds[name][2]}')
     log(f'  K1 fixed chain: {ms["mega_sample"]:.3f} ms per sample pass; '
         f'plain {plain_ms["mega_sample"]:.3f} ms')
     log(f'  K1 regen: {ms["mega_regen"]:.3f} ms per {it}-iteration launch; '
@@ -349,17 +481,271 @@ def main():
     if p_rf < REGEN_PSNR_MIN:
         raise RuntimeError(f'regen vs fixed {p_rf:.2f} dB < {REGEN_PSNR_MIN}')
 
-    src = {'intersect_stream': 'hydracore3_torch/csrc/traverse.cu',
-           'intersect_march': 'hydracore3_torch/csrc/traverse.cu',
-           'mega_sample': 'hydracore3_torch/csrc/megakernel.cu',
-           'mega_regen': 'hydracore3_torch/csrc/megakernel.cu'}
+    del box, pk, k_fixed, p_fixed, k_regen, p_regen, sf, su_r, sf_p, su_p
+    counters = (TST.intersect_stream, TDD.intersect_march, TDD.cell_pass,
+                TT.intersect_stream_tlas, TPL.intersect_clusters,
+                MK.sample_pass, MK.regen_pass)
+
+    def zero_counts():
+        for w in counters:
+            w.launches = 0
+
+    def first_bounce_queries(sc, mt):
+        """The pass's first-bounce queries as ``trace_pass`` sends them:
+        (camera nearest, bounce-0 shadow any-hit, first-bounce nearest),
+        each (pos, dir, t_min, t_max), and the count of traced shadow
+        rays."""
+        n = mt.width * mt.height
+        pix = torch.arange(n, device=dev)
+        zeros = torch.zeros(n, device=dev)
+        stt = IPT.kernel_init_eye_ray(sc, mt, RNG.gen_init(pix), pix)
+
+        def nearest_q(state):
+            live_ = ~IPT._is_dead(state.flags)
+            return (state.ray_pos, state.ray_dir, zeros,
+                    torch.where(live_, IPT.LM.FLT_MAX, 0.0))
+
+        cam = nearest_q(stt)
+        stt = IPT.kernel_ray_trace(sc, mt, stt, 0)
+        cx = IPT.MAT.make_shading_ctx(sc, mt, IPT._extract_mat_id(stt.flags),
+                                      stt.hit_norm, stt.hit_tang, stt.hit_uv)
+        _, _, _, sr = IPT.sample_shadow_rays(sc, mt, stt)
+        shadow = (sr.pos, sr.dir, zeros, sr.t_max)    # lane order
+        sh, r2 = IPT.kernel_sample_light_source(sc, mt, stt, cx)
+        stt = IPT.kernel_next_bounce(sc, mt, stt._replace(rng=r2), 0, sh, cx)
+        if mt.use_stream or mt.use_stream_tlas:
+            stt, _ = IPT._sort_rays_for_trace(stt, pix, sc.st_grid)
+        return cam, shadow, nearest_q(stt), int(sr.need_trace.sum())
+
+    def render_checked(label, sc, mt, wrapper, spp_=16):
+        """``render.render`` with the counts at 0 just before; returns
+        (image, launches of ``wrapper``, Msamples/s)."""
+        zero_counts()
+        im, tm = R.render(sc, mt, spp=spp_, integrator='mispt',
+                          tile_size=1 << 20, return_timing=True)
+        n_l = wrapper.launches
+        rate = mt.width * mt.height * spp_ / tm['total_s'] / 1e6
+        log(f'  render {label} {mt.width}x{mt.height} spp {spp_}: '
+            f'{tm["total_s"]:.2f} s, {rate:.4f} Msamples/s, '
+            f'{wrapper.__name__} launches {n_l}, non-finite lane samples '
+            f'{tm["nonfinite"]}')
+        if n_l == 0:
+            raise RuntimeError(f'{wrapper.__name__} was not launched by '
+                               f'{label}')
+        if tm['nonfinite'] or not np.isfinite(im).all():
+            raise RuntimeError(f'{label}: non-finite samples')
+        return im, n_l, rate
+
+    def same_image(label, im, ref):
+        """Two full-size renders of one scene with the same seeds."""
+        p_, m_ = psnr_mean(im, ref[..., :3])
+        same = float(np.isclose(im[..., :3], ref[..., :3], rtol=1e-3,
+                                atol=1e-3).all(-1).mean())
+        log(f'  {label}: PSNR {p_:.2f} dB, mean {100 * m_:.3f}% off, '
+            f'{same:.6f} of pixels equal to 1e-3')
+        if p_ < PSNR_MIN or m_ > MEAN_TOL:
+            raise RuntimeError(f'{label}: PSNR {p_:.2f} dB, mean '
+                               f'{100 * m_:.3f}% off')
+
+    # ---- 6. the instanced city through the two-level kernel (K4) ---------
+    ICITY = dict(n_blocks=32, subdiv=3, ground_subdiv=32, width=1024,
+                 height=1024, depth=5)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tl_scene, tl_meta = synth.instanced_city_scene(**ICITY,
+                                                   accel='stream_tlas',
+                                                   device=dev)
+    torch.cuda.synchronize()
+    tl_build_s = time.perf_counter() - t0
+    tl_mem = torch.cuda.memory_allocated() - mem0
+    pack = tl_scene.tt
+    log(f'[6] instanced city: {tl_meta.num_tris} soup triangles as '
+        f'{pack.inst_f.shape[0]} instances of {pack.mesh_clusters.shape[0]} '
+        f'meshes, {pack.woop.shape[0] // TST.TBK} clusters, '
+        f'{pack.tlas_f.shape[0]} TLAS nodes, {pack.nodes_f.shape[0]} mesh '
+        f'nodes; built in {tl_build_s:.2f} s, {tl_mem / 2**20:.2f} MiB on '
+        f'the card')
+    if not tl_meta.use_stream_tlas:
+        raise RuntimeError('the instanced city was not built two-level')
+    tlas = lambda *q, **kw: TT.intersect_stream_tlas(  # noqa: E731
+        pack, *q, **kw)
+    cam6, shadow6, bounce6, traced6 = first_bounce_queries(tl_scene, tl_meta)
+    errs['intersect_tlas'] = 0.0
+    for label, q, any_hit in (('camera nearest', cam6, False),
+                              ('shadow any-hit', shadow6, True),
+                              ('bounce nearest', bounce6, False)):
+        plain6, p_ms = timed(lambda: TT.intersect_tlas_plain(
+            pack, *q[:3], torch.clamp(q[3], max=0.99 * TST.FLT_MAX), any_hit))
+        k6 = tlas(*q, any_hit=any_hit)
+        errs['intersect_tlas'] = max(errs['intersect_tlas'], compare(
+            f'K4 intersect_tlas {label}', k6, plain6, any_hit))
+        both6 = (k6[1] >= 0) & (plain6[1] >= 0)
+        inst_eq = float((k6[4] == plain6[4]).float().mean())
+        ties = int((both6 & (k6[0] == plain6[0])
+                    & ((k6[1] != plain6[1]) | (k6[4] != plain6[4]))).sum())
+        k_ms = cuda_ms(lambda: tlas(*q, any_hit=any_hit), 10)
+        log(f'  {label}: instance ids equal on {inst_eq:.6f} of lanes, '
+            f'{ties} equal-t pairs with another triangle or instance; '
+            f'kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms')
+        if inst_eq < AGREE_MIN:
+            raise RuntimeError(f'K4 {label}: instance ids equal on '
+                               f'{inst_eq:.6f} < {AGREE_MIN}')
+        if label == 'camera nearest':
+            ms['intersect_tlas'], plain_ms['intersect_tlas'] = k_ms, p_ms
+            with counted(TST, count_lib) as c:
+                tlas(*q)
+            bounds['intersect_tlas'] = ray_query_bound(
+                c, N, 5, (pack.tlas_f, pack.tlas_i, pack.nodes_f,
+                          pack.nodes_i, pack.inst_f, pack.inst_i, pack.woop))
+            log(f'  intersect_tlas: bound {bounds["intersect_tlas"][0]:.4f} '
+                f'ms by {bounds["intersect_tlas"][1]} '
+                f'{bounds["intersect_tlas"][2]}')
+    log(f'  shadow: {traced6} traced rays')
+    del plain6, k6, cam6, shadow6, bounce6
+    tl_img, launches['intersect_tlas'], _ = render_checked(
+        'two-level', tl_scene, tl_meta, TT.intersect_stream_tlas)
+    del tl_scene, pack
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    flat_scene, flat_meta = synth.instanced_city_scene(**ICITY,
+                                                       accel='stream',
+                                                       device=dev)
+    torch.cuda.synchronize()
+    log(f'  the same city flattened: {flat_meta.num_tris} padded soup rows, '
+        f'built in {time.perf_counter() - t0:.2f} s, '
+        f'{(torch.cuda.memory_allocated() - mem0) / 2**20:.2f} MiB on the '
+        f'card (two-level: {tl_mem / 2**20:.2f} MiB)')
+    flat_img, _, _ = render_checked('flattened', flat_scene, flat_meta,
+                                    TDD.intersect_march)
+    same_image('two-level vs flattened', tl_img, flat_img)
+    del flat_scene, tl_img, flat_img
+    _, big_meta = B.build_scene(synth.build_instanced_city(
+        n_blocks=48, width=1024, height=1024), device=dev)
+    log(f'  48-block instanced city under accel=auto: {big_meta.num_tris} '
+        f'soup triangles, use_stream_tlas {big_meta.use_stream_tlas}')
+    if not big_meta.use_stream_tlas or big_meta.num_tris != 209_410:
+        raise RuntimeError('the 48-block instanced city must go two-level')
+
+    # ---- 7. the mid-size city through the cluster kernel (K5) ------------
+    MID = dict(n_blocks=40, width=1024, height=1024, depth=5, textured=True)
+    t0 = time.perf_counter()
+    cl_scene, cl_meta = synth.city_scene(**MID, device=dev)
+    torch.cuda.synchronize()
+    log(f'[7] mid-size city: {cl_meta.num_tris} triangles, '
+        f'{cl_scene.cl_nodes_f.shape[0]} nodes, use_pallas '
+        f'{cl_meta.use_pallas}, built in {time.perf_counter() - t0:.2f} s')
+    if not cl_meta.use_pallas or cl_meta.num_tris != 152_194:
+        raise RuntimeError('the 40-block city must route to the cluster '
+                           'kernel with 152194 triangles')
+    clusters = lambda *q, **kw: TPL.intersect_clusters(  # noqa: E731
+        cl_scene.cl_nodes_f, cl_scene.cl_nodes_i, cl_scene.cl_tris12, *q,
+        **kw)
+    cam7, shadow7, bounce7, traced7 = first_bounce_queries(cl_scene, cl_meta)
+    errs['intersect_clusters'] = 0.0
+    for label, q, any_hit in (('camera nearest', cam7, False),
+                              ('shadow any-hit', shadow7, True),
+                              ('bounce nearest', bounce7, False)):
+        plain7, p_ms = timed(lambda: TPL.intersect_clusters_plain(
+            cl_scene.cl_tris12, *q, any_hit))
+        k7 = clusters(*q, any_hit=any_hit)
+        errs['intersect_clusters'] = max(errs['intersect_clusters'], compare(
+            f'K5 intersect_clusters {label}', k7, plain7, any_hit))
+        k_ms = cuda_ms(lambda: clusters(*q, any_hit=any_hit), 10)
+        log(f'  {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms')
+        if label == 'camera nearest':
+            ms['intersect_clusters'] = k_ms
+            plain_ms['intersect_clusters'] = p_ms
+            with counted(TST, count_lib) as c:
+                clusters(*q)
+            bounds['intersect_clusters'] = ray_query_bound(
+                c, N, 4, (cl_scene.cl_nodes_f, cl_scene.cl_nodes_i,
+                          cl_scene.cl_tris12), tri_ops=MT_OPS)
+            log(f'  intersect_clusters: bound '
+                f'{bounds["intersect_clusters"][0]:.4f} ms by '
+                f'{bounds["intersect_clusters"][1]} '
+                f'{bounds["intersect_clusters"][2]}')
+    log(f'  shadow: {traced7} traced rays')
+    del plain7, k7, cam7, shadow7, bounce7
+    cl_img, launches['intersect_clusters'], _ = render_checked(
+        'cluster route', cl_scene, cl_meta, TPL.intersect_clusters)
+    del cl_scene
+    st_scene, st_meta = synth.city_scene(**MID, accel='stream', device=dev)
+    st_img, _, _ = render_checked('streamed', st_scene, st_meta,
+                                  TDD.intersect_march)
+    same_image('cluster route vs streamed', cl_img, st_img)
+    del st_scene, cl_img, st_img
+
+    # ---- 8. the cell-pass wavefront (K6) on the bench city ---------------
+    grid0 = TDD.pack_grid(scene.st_nodes_f.cpu().numpy(),
+                          scene.st_nodes_i.cpu().numpy(),
+                          robust_aabb=False).to(dev)
+    log(f'[8] intersect_dda on the bench city, grid {grid0.dims} without '
+        f'outliers ({grid0.n_outliers})')
+    stats = {}
+    k8 = TDD.intersect_dda(grid0, woop, *cam_q, stats=stats)
+    errs['cell_pass'] = compare('K6 intersect_dda nearest, camera', k8,
+                                cam_plain)
+    log(f'  nearest: {stats["rounds"]} rounds, {stats["live"]} lanes left '
+        f'live after max_rounds')
+    if stats['live']:
+        raise RuntimeError(f'{stats["live"]} lanes left live by '
+                           f'intersect_dda')
+    stats = {}
+    k8 = TDD.intersect_dda(grid0, woop, *shadow_q, any_hit=True, stats=stats)
+    errs['cell_pass'] = max(errs['cell_pass'], compare(
+        'K6 intersect_dda any-hit, shadow', k8, shadow_plain, any_hit=True))
+    log(f'  any-hit: {stats["rounds"]} rounds, {stats["live"]} lanes left '
+        f'live, kernel launches {stats["kernel_ms"]:.3f} ms in all')
+    if stats['live']:
+        raise RuntimeError(f'{stats["live"]} lanes left live by '
+                           f'intersect_dda (any-hit)')
+    # its main path is the entry point itself: one more nearest query with
+    # the counts at 0 just before, timed as a whole and launch by launch
+    zero_counts()
+    stats = {}
+    _, total_ms = timed(lambda: TDD.intersect_dda(grid0, woop, *cam_q,
+                                                  stats=stats))
+    launches['cell_pass'] = TDD.cell_pass.launches
+    ms['cell_pass'] = stats['kernel_ms']
+    plain_ms['cell_pass'] = cam_plain_ms
+    log(f'  nearest, camera: {total_ms:.3f} ms for {stats["rounds"]} rounds '
+        f'({total_ms / stats["rounds"]:.3f} ms per round with the host\'s '
+        f'stepping), of which the {launches["cell_pass"]} kernel launches '
+        f'{stats["kernel_ms"]:.3f} ms '
+        f'({stats["kernel_ms"] / stats["rounds"]:.3f} ms per round); plain '
+        f'{cam_plain_ms:.3f} ms')
+    if launches['cell_pass'] == 0:
+        raise RuntimeError('cell_pass was not launched by intersect_dda')
+    with counted(TST, count_lib) as c:
+        TDD.intersect_dda(grid0, woop, *cam_q)
+    bounds['cell_pass'] = ray_query_bound(
+        c, N, 4, (grid0.cell_tab, grid0.cell_cl, grid0.cl_aabb,
+                  grid0.cl_count, woop))
+    log(f'  cell_pass: bound {bounds["cell_pass"][0]:.4f} ms by '
+        f'{bounds["cell_pass"][1]} {bounds["cell_pass"][2]}')
+
+    csrc = 'hydracore3_torch/csrc/'
+    src = {'intersect_stream': csrc + 'traverse.cu',
+           'intersect_march': csrc + 'traverse.cu',
+           'mega_sample': csrc + 'megakernel.cu',
+           'mega_regen': csrc + 'megakernel.cu',
+           'intersect_tlas': csrc + 'traverse.cu',
+           'intersect_clusters': csrc + 'traverse.cu',
+           'cell_pass': csrc + 'traverse.cu'}
     replaces = {'intersect_stream': 'hydracore3_tpu/accel/traverse_stream.py:59',
                 'intersect_march': 'hydracore3_tpu/accel/traverse_dda.py:563',
                 'mega_sample': 'hydracore3_tpu/models/megakernel.py:2086',
-                'mega_regen': 'hydracore3_tpu/models/megakernel.py:2321'}
+                'mega_regen': 'hydracore3_tpu/models/megakernel.py:2321',
+                'intersect_tlas': 'hydracore3_tpu/accel/traverse_tlas.py:49',
+                'intersect_clusters':
+                    'hydracore3_tpu/accel/traverse_pallas.py:43',
+                'cell_pass': 'hydracore3_tpu/accel/traverse_dda.py:179'}
     kernels = [dict(name=n, route='cuda', source=src[n], replaces=replaces[n],
                     launches=launches[n], max_abs_err=errs[n], ms=ms[n],
-                    plain_ms=plain_ms[n]) for n in src]
+                    plain_ms=plain_ms[n], bound_ms=bounds[n][0],
+                    bound_by=bounds[n][1], library_ms=None) for n in src]
     log(card)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

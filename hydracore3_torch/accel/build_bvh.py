@@ -53,8 +53,16 @@ def build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     v0 = np.asarray(v0, np.float32)
     v1 = v0 + np.asarray(e1, np.float32)
     v2 = v0 + np.asarray(e2, np.float32)
-    tmin = np.ascontiguousarray(np.minimum(np.minimum(v0, v1), v2))
-    tmax = np.ascontiguousarray(np.maximum(np.maximum(v0, v1), v2))
+    return build_from_aabbs(np.minimum(np.minimum(v0, v1), v2),
+                            np.maximum(np.maximum(v0, v1), v2), max_leaf)
+
+
+def build_from_aabbs(tmin: np.ndarray, tmax: np.ndarray,
+                     max_leaf: int) -> FlatBVH:
+    """Build over per-primitive boxes: triangle bounds for a mesh's BVH,
+    instance world boxes (``max_leaf=1``) for a TLAS."""
+    tmin = np.ascontiguousarray(tmin, np.float32)
+    tmax = np.ascontiguousarray(tmax, np.float32)
     T = len(tmin)
     cap = 2 * T + 1
     bmin = np.empty((cap, 3), np.float32)
@@ -72,7 +80,7 @@ def build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
         skip.ctypes.data_as(i32p), tri_offset.ctypes.data_as(i32p),
         tri_count.ctypes.data_as(i32p), order.ctypes.data_as(i32p))
     if n <= 0:
-        raise RuntimeError(f'native BVH build failed ({n}) for {T} triangles')
+        raise RuntimeError(f'native BVH build failed ({n}) for {T} boxes')
     return FlatBVH(bmin=bmin[:n].copy(), bmax=bmax[:n].copy(),
                    skip=skip[:n].copy(), tri_offset=tri_offset[:n].copy(),
                    tri_count=tri_count[:n].copy(), order=order)

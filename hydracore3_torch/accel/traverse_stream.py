@@ -36,23 +36,78 @@ def _nvcc() -> str:
     return cuda_nvcc if os.path.exists(cuda_nvcc) else 'nvcc'
 
 
-def build_kernels() -> float:
-    """Compile (at first use) and load ``csrc/traverse.cu``; returns the
-    seconds spent compiling (0 when already built or loaded)."""
-    global _lib
-    if _lib is not None:
-        return 0.0
-    path, secs = build_shared_library('traverse', [_CU_SRC],
-                                      [_nvcc()] + _NVCC_FLAGS)
+def load_library(defines=()):
+    """Compile (unless already built) and load ``csrc/traverse.cu`` with
+    the given ``-D`` macros; returns (library, seconds spent compiling).
+    No macro gives the library every wrapper launches.  ``HC3_COUNT`` gives
+    the measuring variant: the same entry points, with every kernel summing
+    its box tests, triangle tests, instance entries and grid cells into
+    four counters that ``hc3_counts_reset()`` zeroes and
+    ``hc3_counts_read(ptr to 4 u64)`` copies out."""
+    flags = _NVCC_FLAGS + [f'-D{d}' for d in defines]
+    name = '-'.join(['traverse', *defines]).lower()
+    path, secs = build_shared_library(name, [_CU_SRC], [_nvcc()] + flags)
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hc3_intersect_stream.restype = i
-    lib.hc3_intersect_stream.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
+    lib.hc3_intersect_stream.argtypes = [p, p, p, p, i, i] + [p] * 5
     lib.hc3_intersect_march.restype = i
     lib.hc3_intersect_march.argtypes = ([p] * 5 + [i, p, p, i] + [f] * 6
                                         + [i] * 4 + [p] * 6)
-    _lib = lib
+    lib.hc3_intersect_tlas.restype = i
+    lib.hc3_intersect_tlas.argtypes = [p] * 8 + [i, i] + [p] * 6
+    lib.hc3_intersect_clusters.restype = i
+    lib.hc3_intersect_clusters.argtypes = [p, p, p, p, i, i] + [p] * 5
+    lib.hc3_cell_pass.restype = i
+    lib.hc3_cell_pass.argtypes = [p] * 7 + [i, i] + [p] * 6
+    lib.hc3_traverse_attrs.restype = i
+    lib.hc3_traverse_attrs.argtypes = [i, p]
+    if 'HC3_COUNT' in defines:
+        lib.hc3_counts_reset.restype = i
+        lib.hc3_counts_reset.argtypes = []
+        lib.hc3_counts_read.restype = i
+        lib.hc3_counts_read.argtypes = [p]
+    return lib, secs
+
+
+def build_kernels() -> float:
+    """Compile (at first use) and load ``csrc/traverse.cu``, the source of
+    every ray-query kernel (this module's, ``traverse_dda``'s,
+    ``traverse_tlas``'s and ``traverse_pallas``'s); returns the seconds
+    spent compiling (0 when already built or loaded)."""
+    global _lib
+    if _lib is not None:
+        return 0.0
+    _lib, secs = load_library()
     return secs
+
+
+def kernel_library():
+    """The loaded library of ``csrc/traverse.cu`` (built at first use)."""
+    build_kernels()
+    return _lib
+
+
+KERNEL_NAMES = ('intersect_stream_kernel<nearest>',
+                'intersect_stream_kernel<any-hit>', 'intersect_march_kernel',
+                'intersect_tlas_kernel<nearest>',
+                'intersect_tlas_kernel<any-hit>',
+                'intersect_clusters_kernel<nearest>',
+                'intersect_clusters_kernel<any-hit>',
+                'cell_pass_kernel<nearest>', 'cell_pass_kernel<any-hit>')
+
+
+def kernel_attrs(lib=None) -> dict:
+    """Registers per thread and local (spill) bytes of every ray-query
+    kernel, as the loaded library (the shipped one by default) reports
+    them: name -> (registers, local bytes)."""
+    lib = lib or kernel_library()
+    out = {}
+    for k, name in enumerate(KERNEL_NAMES):
+        v = (ctypes.c_int * 2)()
+        launch_checked(name, lib.hc3_traverse_attrs(k, v))
+        out[name] = (v[0], v[1])
+    return out
 
 
 def check_cuda_inputs(name, tensors: dict, device):
@@ -140,6 +195,35 @@ def intersect_plain(woop, ray_pos, ray_dir, t_min, t_max, any_hit=False):
     return best_t, best_i, best_u, best_v
 
 
+def hits_agree(kernel, plain, any_hit: bool = False) -> dict:
+    """How a kernel's ``(t, tri, u, v, ...)`` stands against its plain
+    version's on the same rays; the measure of every card check of a
+    ray-query kernel.  Shares: ``hit_eq`` (lanes with the same hit flag),
+    ``t_ok`` (both-hit lanes whose t agrees to rtol 2e-4, atol 1e-5) and
+    ``tri_eq`` (both-hit lanes reporting the same triangle); maxima over
+    the lanes where both report the same triangle: ``max_dt`` and
+    ``max_duv`` (the barycentrics; 0 under any-hit, which returns none);
+    ``both``, the count of both-hit lanes."""
+    kt, ktri, ku, kv = (x.cpu().numpy() for x in kernel[:4])
+    pt, ptri, pu, pv = (x.cpu().numpy() for x in plain[:4])
+    kh, ph = ktri >= 0, ptri >= 0
+    both = kh & ph
+    same = both & (ktri == ptri)
+    n_both = int(both.sum())
+    out = dict(hit_eq=float((kh == ph).mean()), t_ok=1.0, tri_eq=1.0,
+               max_dt=0.0, max_duv=0.0, both=n_both)
+    if n_both:
+        out['t_ok'] = float(np.isclose(kt[both], pt[both], rtol=2e-4,
+                                       atol=1e-5).mean())
+        out['tri_eq'] = float(same.sum()) / n_both
+    if same.any():
+        out['max_dt'] = float(np.abs(kt[same] - pt[same]).max())
+        if not any_hit:
+            out['max_duv'] = float(max(np.abs(ku[same] - pu[same]).max(),
+                                       np.abs(kv[same] - pv[same]).max()))
+    return out
+
+
 def intersect_stream(nodes_f, nodes_i, woop, ray_pos, ray_dir, t_min, t_max,
                      any_hit: bool = False):
     """Nearest-hit / any-hit over the streamed cluster BVH.
@@ -154,7 +238,7 @@ def intersect_stream(nodes_f, nodes_i, woop, ray_pos, ray_dir, t_min, t_max,
         return intersect_plain(woop, ray_pos, ray_dir, t_min, t_max, any_hit)
     if dev.type != 'cuda':
         raise ValueError(f'intersect_stream: unsupported device {dev}')
-    build_kernels()
+    lib = kernel_library()
     check_cuda_inputs('intersect_stream', dict(
         nodes_f=(nodes_f, torch.float32), nodes_i=(nodes_i, torch.int32),
         woop=(woop, torch.float32)), dev)
@@ -165,7 +249,7 @@ def intersect_stream(nodes_f, nodes_i, woop, ray_pos, ray_dir, t_min, t_max,
     u = torch.empty(N, dtype=torch.float32, device=dev)
     v = torch.empty(N, dtype=torch.float32, device=dev)
     if N > 0:
-        rc = _lib.hc3_intersect_stream(
+        rc = lib.hc3_intersect_stream(
             nodes_f.data_ptr(), nodes_i.data_ptr(), woop.data_ptr(),
             rays.data_ptr(), N, int(any_hit), t.data_ptr(), tri.data_ptr(),
             u.data_ptr(), v.data_ptr(),

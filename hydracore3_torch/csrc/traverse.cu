@@ -1,6 +1,6 @@
 // Ray queries over the streamed cluster BVH and its uniform grid, for Hopper.
 //
-// Two kernels, one ray per thread, 128 threads per block:
+// Five kernels, one ray per thread, 128 threads per block:
 //
 //  * intersect_stream_kernel<ANY_HIT> replaces the Pallas kernel
 //    hydracore3_tpu/accel/traverse_stream.py:_kernel (wrapper
@@ -18,6 +18,32 @@
 //    before the current cell's exit or the ray leaves the grid.  Every lane
 //    is marched to its end; a lane still live after the iteration cap is
 //    reported unresolved (none is expected).
+//  * intersect_tlas_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
+//    traverse_tlas.py:_kernel (wrapper intersect_stream_tlas): a two-level
+//    walk.  The world-space ray walks a skip-pointer TLAS over instance
+//    boxes; at a leaf it is taken into the instance's object space by the
+//    inverse matrix WITHOUT renormalizing the direction, so object t equals
+//    world t and one best t culls across instances; the safe inverses are
+//    recomputed and the instance's mesh BVH (the same node/cluster/Woop
+//    layout as the stream kernel's, skips global, -1 ends a mesh) is walked.
+//    The transform is written with __fmul_rn/__fadd_rn in the order of the
+//    plain torch version so both feed the same object-space ray to the
+//    triangle test.  Nearest keeps (t, tri, u, v, inst); any-hit ends the
+//    whole walk at the first valid triangle (tri = 0, t = tmin, inst = -1).
+//  * intersect_clusters_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
+//    traverse_pallas.py:_kernel (wrapper intersect_clusters): the same
+//    stackless walk over a BVH whose leaves are ranges [toff, toff + tcnt)
+//    of unpadded (v0, e1, e2) rows, tested with Moller-Trumbore
+//    (pvec = d x e2, det = pvec . e1, |det| > 1e-12).  Nearest keeps the
+//    unpadded leaf-order index; any-hit keeps the first valid triangle's
+//    index with t = tmin and ends the walk.  t_max is not clamped here.
+//  * cell_pass_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
+//    traverse_dda.py:_cell_kernel (one round of intersect_dda): each lane
+//    brings the id of the grid cell it stands in (BIG_I = idle) and its
+//    running best; the kernel tests that cell's clusters (box against the
+//    best t, then the Woop rows), updates the best in place and flags the
+//    lane processed.  A lane's cell is always taken whole, so the TPU
+//    kernel's per-tile cell cap and cluster queue are gone.
 //
 // What bounds them on the card: each step is a dependent load (node, cell
 // list, cluster box, then 48 bytes per triangle) whose address comes from
@@ -28,7 +54,13 @@
 // float4/int4 rows), culls a cluster by its box before touching its
 // triangles, loops over the real triangles of a leaf only, and relies on
 // the integrator's per-bounce coherence sort to keep neighbouring lanes on
-// similar paths.  No shared memory, tiles or queues.
+// similar paths.  No shared memory, tiles or queues.  The three later
+// kernels are bound the same way: per ray a chain of dependent 16-byte loads
+// from tables that fit L2 (the instanced city's whole geometry is ~40
+// clusters, under 200 KB, plus 130 KB of instance rows; the mid-size city's
+// 152k triangle rows are 7.3 MB), so latency and warp divergence, not DRAM
+// bandwidth or f32 rate, set their time; the two-level walk adds one
+// 48-byte instance-matrix read and 18 multiply-adds per instance entered.
 //
 // Semantics follow the JAX kernels: slab test with inv = 1/d where
 // |d| > 1e-20 else 1e30, tn = max(mins, tmin), tf = min(maxs, best_t), hit
@@ -83,13 +115,45 @@ struct Best {
   int tri;
 };
 
+// What a lane did: box tests, triangle tests, instances entered, grid cells
+// visited.  Only a build with -DHC3_COUNT counts: it is a second library of
+// this source for measuring a query's operations (a roofline's numerator),
+// with the same C interface plus hc3_counts_reset / hc3_counts_read.  In
+// the shipped build every HC3_ macro below expands to nothing, so no
+// counter, argument or store exists there.
+#ifdef HC3_COUNT
+struct Counts {
+  unsigned long long slab = 0, tri = 0, inst = 0, cell = 0;
+};
+__device__ unsigned long long g_counts[4];
+#define HC3_COUNTS Counts cnt
+#define HC3_COUNTS_PARAM , Counts& cnt
+#define HC3_COUNTS_ARG , cnt
+#define HC3_TICK(field) (++cnt.field)
+#define HC3_FLUSH                                                            \
+  do {                                                                        \
+    atomicAdd(g_counts + 0, cnt.slab);                                        \
+    atomicAdd(g_counts + 1, cnt.tri);                                         \
+    atomicAdd(g_counts + 2, cnt.inst);                                        \
+    atomicAdd(g_counts + 3, cnt.cell);                                        \
+  } while (0)
+#else
+#define HC3_COUNTS
+#define HC3_COUNTS_PARAM
+#define HC3_COUNTS_ARG
+#define HC3_TICK(field)
+#define HC3_FLUSH
+#endif
+
 // Woop test of triangles [base, base + count) (rows of 3 float4).
 // Returns true on the first valid triangle under ANY_HIT.
 template <bool ANY_HIT>
 __device__ __forceinline__ bool cluster(const Ray& r,
                                         const float4* __restrict__ woop,
-                                        int base, int count, Best& best) {
+                                        int base, int count,
+                                        Best& best HC3_COUNTS_PARAM) {
   for (int k = 0; k < count; ++k) {
+    HC3_TICK(tri);
     const float4* w = woop + 3 * (base + k);
     float4 wx = w[0], wy = w[1], wz = w[2];
     float po_z = wz.x * r.ox + wz.y * r.oy + wz.z * r.oz + wz.w;
@@ -128,12 +192,16 @@ intersect_stream_kernel(const float4* __restrict__ nodes_f,
   if (i >= n) return;
   Ray r = load_ray(rays, i);
   Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
   int node = 0;
   while (node >= 0) {
     int4 ni = nodes_i[node];
+    HC3_TICK(slab);
     bool hit = slab(r, nodes_f[2 * node], nodes_f[2 * node + 1], best.t);
     if (hit && ni.y >= 0) {
-      if (cluster<ANY_HIT>(r, woop, ni.y * TBK, ni.z, best)) break;
+      if (cluster<ANY_HIT>(r, woop, ni.y * TBK, ni.z,
+                           best HC3_COUNTS_ARG))
+        break;
     }
     node = (hit && ni.y < 0) ? node + 1 : ni.x;
   }
@@ -141,6 +209,7 @@ intersect_stream_kernel(const float4* __restrict__ nodes_f,
   out_tri[i] = best.tri;
   out_u[i] = best.u;
   out_v[i] = best.v;
+  HC3_FLUSH;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -161,10 +230,13 @@ intersect_march_kernel(const int4* __restrict__ cell_tab,
   if (i >= n) return;
   Ray r = load_ray(rays, i);
   Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
 
   auto visit = [&](int slot) {
+    HC3_TICK(slab);
     if (slab(r, cl_aabb[2 * slot], cl_aabb[2 * slot + 1], best.t))
-      cluster<false>(r, woop, slot * TBK, cl_count[slot], best);
+      cluster<false>(r, woop, slot * TBK, cl_count[slot],
+                     best HC3_COUNTS_ARG);
   };
   for (int k = 0; k < n_outliers; ++k) visit(outliers[k].x);
 
@@ -190,6 +262,7 @@ intersect_march_kernel(const int4* __restrict__ cell_tab,
   if (!done) locate(t_cur);
   for (int it = 0; !done && it < max_iter; ++it) {
     int4 ct = cell_tab[(cx * d1 + cy) * d2 + cz];
+    HC3_TICK(cell);
     for (int j = 0; j < ct.y; ++j) visit(cell_cl[ct.x + j].x);
     float tx = fabsf(r.dx) > 1e-20f
                    ? (lo0 + (float)(cx + (r.dx > 0.0f)) * h0 - r.ox) * r.ix
@@ -242,31 +315,260 @@ intersect_march_kernel(const int4* __restrict__ cell_tab,
   out_u[i] = best.u;
   out_v[i] = best.v;
   out_un[i] = done ? 0 : 1;
+  HC3_FLUSH;
+}
+
+
+// ---- two-level (TLAS over instances, per-mesh cluster BVHs) -----------------
+
+// M (3x4 rows m0..m2) applied as ((a*x + b*y) + c*z) [+ w], each operation
+// rounded on its own, as the plain torch version computes it
+__device__ __forceinline__ float dot3_rn(float4 m, float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(m.x, x), __fmul_rn(m.y, y)),
+                   __fmul_rn(m.z, z));
+}
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(BLOCK)
+intersect_tlas_kernel(const float4* __restrict__ tlas_f,
+                      const int4* __restrict__ tlas_i,
+                      const float4* __restrict__ nodes_f,
+                      const int4* __restrict__ nodes_i,
+                      const float4* __restrict__ inst_f,
+                      const int4* __restrict__ inst_i,
+                      const float4* __restrict__ woop,
+                      const float4* __restrict__ rays, int n,
+                      float* __restrict__ out_t, int* __restrict__ out_tri,
+                      float* __restrict__ out_u, float* __restrict__ out_v,
+                      int* __restrict__ out_inst) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(rays, i);
+  Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
+  int best_inst = -1;
+  int tnode = 0;
+  bool done = false;
+  while (tnode >= 0 && !done) {
+    int4 ti = tlas_i[tnode];
+    HC3_TICK(slab);
+    bool hit = slab(r, tlas_f[2 * tnode], tlas_f[2 * tnode + 1], best.t);
+    if (hit && ti.y >= 0) {
+      int inst = ti.y;
+      HC3_TICK(inst);
+      float4 m0 = inst_f[4 * inst], m1 = inst_f[4 * inst + 1],
+             m2 = inst_f[4 * inst + 2];
+      Ray o;
+      o.ox = __fadd_rn(dot3_rn(m0, r.ox, r.oy, r.oz), m0.w);
+      o.oy = __fadd_rn(dot3_rn(m1, r.ox, r.oy, r.oz), m1.w);
+      o.oz = __fadd_rn(dot3_rn(m2, r.ox, r.oy, r.oz), m2.w);
+      o.dx = dot3_rn(m0, r.dx, r.dy, r.dz);
+      o.dy = dot3_rn(m1, r.dx, r.dy, r.dz);
+      o.dz = dot3_rn(m2, r.dx, r.dy, r.dz);
+      o.ix = safe_inv(o.dx); o.iy = safe_inv(o.dy); o.iz = safe_inv(o.dz);
+      o.tmin = r.tmin; o.tmax = r.tmax;
+      int node = inst_i[inst].x;
+      while (node >= 0) {
+        int4 ni = nodes_i[node];
+        HC3_TICK(slab);
+        bool h = slab(o, nodes_f[2 * node], nodes_f[2 * node + 1], best.t);
+        if (h && ni.y >= 0) {
+          float t_before = best.t;
+          if (cluster<ANY_HIT>(o, woop, ni.y * TBK, ni.z,
+                               best HC3_COUNTS_ARG)) {
+            done = true;
+            break;
+          }
+          if (best.t < t_before) best_inst = inst;
+        }
+        node = (h && ni.y < 0) ? node + 1 : ni.x;
+      }
+    }
+    tnode = (hit && ti.y < 0) ? tnode + 1 : ti.x;
+  }
+  out_t[i] = best.t;
+  out_tri[i] = best.tri;
+  out_u[i] = best.u;
+  out_v[i] = best.v;
+  out_inst[i] = best_inst;
+  HC3_FLUSH;
+}
+
+// ---- cluster BVH over unpadded (v0, e1, e2) rows, Moller-Trumbore ------------
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(BLOCK)
+intersect_clusters_kernel(const float4* __restrict__ nodes_f,
+                          const int4* __restrict__ nodes_i,
+                          const float4* __restrict__ tris12,
+                          const float4* __restrict__ rays, int n,
+                          float* __restrict__ out_t, int* __restrict__ out_tri,
+                          float* __restrict__ out_u,
+                          float* __restrict__ out_v) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(rays, i);
+  Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
+  int node = 0;
+  while (node >= 0) {
+    int4 ni = nodes_i[node];           // (skip, tri offset, tri count, pad)
+    HC3_TICK(slab);
+    bool hit = slab(r, nodes_f[2 * node], nodes_f[2 * node + 1], best.t);
+    bool found = false;
+    if (hit && ni.z > 0) {
+      for (int k = 0; k < ni.z; ++k) {
+        HC3_TICK(tri);
+        const float4* tr = tris12 + 3 * (ni.y + k);
+        float4 a = tr[0], b = tr[1], c = tr[2];
+        float v0x = a.x, v0y = a.y, v0z = a.z;
+        float e1x = a.w, e1y = b.x, e1z = b.y;
+        float e2x = b.z, e2y = b.w, e2z = c.x;
+        float pvx = r.dy * e2z - r.dz * e2y;
+        float pvy = r.dz * e2x - r.dx * e2z;
+        float pvz = r.dx * e2y - r.dy * e2x;
+        float det = pvx * e1x + pvy * e1y + pvz * e1z;
+        bool nondeg = fabsf(det) > 1e-12f;
+        float inv = nondeg ? 1.0f / det : 0.0f;
+        float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
+        float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+        float qvx = tvy * e1z - tvz * e1y;
+        float qvy = tvz * e1x - tvx * e1z;
+        float qvz = tvx * e1y - tvy * e1x;
+        float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv;
+        float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+        bool ok = nondeg && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+                  (t > r.tmin) && (t < best.t);
+        if (ok) {
+          best.t = ANY_HIT ? r.tmin : t;
+          best.tri = ni.y + k;
+          best.u = u;
+          best.v = v;
+          if (ANY_HIT) {
+            found = true;
+            break;
+          }
+        }
+      }
+    }
+    if (found) break;
+    node = (hit && ni.z == 0) ? node + 1 : ni.x;
+  }
+  out_t[i] = best.t;
+  out_tri[i] = best.tri;
+  out_u[i] = best.u;
+  out_v[i] = best.v;
+  HC3_FLUSH;
+}
+
+// ---- one round of the cell-rebinned wavefront ---------------------------------
+
+constexpr int BIG_I = 0x7FFFFFF0;    // idle lane
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(BLOCK)
+cell_pass_kernel(const int4* __restrict__ cell_tab,
+                 const int4* __restrict__ cell_cl,
+                 const float4* __restrict__ cl_aabb,
+                 const int* __restrict__ cl_count,
+                 const float4* __restrict__ woop,
+                 const float4* __restrict__ rays,
+                 const int* __restrict__ cell, int n,
+                 float* __restrict__ best_t, int* __restrict__ best_i,
+                 float* __restrict__ best_u, float* __restrict__ best_v,
+                 int* __restrict__ processed) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  int c = cell[i];
+  if (c >= BIG_I) {
+    processed[i] = 0;
+    return;
+  }
+  Ray r = load_ray(rays, i);
+  Best best{best_t[i], best_u[i], best_v[i], best_i[i]};
+  HC3_COUNTS;
+  int4 ct = cell_tab[c];
+  HC3_TICK(cell);
+  for (int j = 0; j < ct.y; ++j) {
+    int slot = cell_cl[ct.x + j].x;
+    HC3_TICK(slab);
+    if (slab(r, cl_aabb[2 * slot], cl_aabb[2 * slot + 1], best.t) &&
+        cluster<ANY_HIT>(r, woop, slot * TBK, cl_count[slot],
+                         best HC3_COUNTS_ARG))
+      break;
+  }
+  best_t[i] = best.t;
+  best_i[i] = best.tri;
+  best_u[i] = best.u;
+  best_v[i] = best.v;
+  processed[i] = 1;
+  HC3_FLUSH;
 }
 
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
 
+// Launch KERNEL<ANY_HIT> with the flag chosen at run time.
+#define HC3_LAUNCH(KERNEL, any_hit, ...)                                      \
+  do {                                                                        \
+    if (n > 0) {                                                              \
+      if (any_hit)                                                            \
+        KERNEL<true><<<blocks(n), BLOCK, 0, s>>>(__VA_ARGS__);                \
+      else                                                                    \
+        KERNEL<false><<<blocks(n), BLOCK, 0, s>>>(__VA_ARGS__);               \
+    }                                                                         \
+  } while (0)
+
+#ifdef HC3_COUNT
+extern "C" int hc3_counts_reset() {
+  unsigned long long zero[4] = {0, 0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_counts, zero, sizeof(zero)));
+}
+
+// out: 4 x u64 on the host (box tests, triangle tests, instances, cells);
+// waits for the launches before it
+extern "C" int hc3_counts_read(void* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_counts, 4 * sizeof(unsigned long long)));
+}
+#endif
+
+// Registers per thread (out[0]) and local, i.e. spill, bytes (out[1]) of
+// kernel k as loaded: 0/1 stream nearest/any-hit, 2 march, 3/4 two-level,
+// 5/6 clusters, 7/8 cell pass.
+extern "C" int hc3_traverse_attrs(int k, int* out) {
+  const void* f[] = {
+      (const void*)intersect_stream_kernel<false>,
+      (const void*)intersect_stream_kernel<true>,
+      (const void*)intersect_march_kernel,
+      (const void*)intersect_tlas_kernel<false>,
+      (const void*)intersect_tlas_kernel<true>,
+      (const void*)intersect_clusters_kernel<false>,
+      (const void*)intersect_clusters_kernel<true>,
+      (const void*)cell_pass_kernel<false>,
+      (const void*)cell_pass_kernel<true>};
+  if (k < 0 || k >= 9) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, f[k]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
 extern "C" int hc3_intersect_stream(const void* nodes_f, const void* nodes_i,
                                     const void* woop, const void* rays, int n,
                                     int any_hit, void* out_t, void* out_tri,
                                     void* out_u, void* out_v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto nf = static_cast<const float4*>(nodes_f);
-  auto ni = static_cast<const int4*>(nodes_i);
-  auto w = static_cast<const float4*>(woop);
-  auto r = static_cast<const float4*>(rays);
-  auto t = static_cast<float*>(out_t);
-  auto tri = static_cast<int*>(out_tri);
-  auto u = static_cast<float*>(out_u);
-  auto v = static_cast<float*>(out_v);
-  if (n > 0 && any_hit)
-    intersect_stream_kernel<true><<<blocks(n), BLOCK, 0, s>>>(
-        nf, ni, w, r, n, t, tri, u, v);
-  else if (n > 0)
-    intersect_stream_kernel<false><<<blocks(n), BLOCK, 0, s>>>(
-        nf, ni, w, r, n, t, tri, u, v);
+  HC3_LAUNCH(intersect_stream_kernel, any_hit,
+             static_cast<const float4*>(nodes_f),
+             static_cast<const int4*>(nodes_i),
+             static_cast<const float4*>(woop),
+             static_cast<const float4*>(rays), n, static_cast<float*>(out_t),
+             static_cast<int*>(out_tri), static_cast<float*>(out_u),
+             static_cast<float*>(out_v));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,5 +591,61 @@ extern "C" int hc3_intersect_march(
         static_cast<float*>(out_u), static_cast<float*>(out_v),
         static_cast<int*>(out_un));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hc3_intersect_tlas(
+    const void* tlas_f, const void* tlas_i, const void* nodes_f,
+    const void* nodes_i, const void* inst_f, const void* inst_i,
+    const void* woop, const void* rays, int n, int any_hit, void* out_t,
+    void* out_tri, void* out_u, void* out_v, void* out_inst, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  HC3_LAUNCH(intersect_tlas_kernel, any_hit,
+             static_cast<const float4*>(tlas_f),
+             static_cast<const int4*>(tlas_i),
+             static_cast<const float4*>(nodes_f),
+             static_cast<const int4*>(nodes_i),
+             static_cast<const float4*>(inst_f),
+             static_cast<const int4*>(inst_i),
+             static_cast<const float4*>(woop),
+             static_cast<const float4*>(rays), n, static_cast<float*>(out_t),
+             static_cast<int*>(out_tri), static_cast<float*>(out_u),
+             static_cast<float*>(out_v), static_cast<int*>(out_inst));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hc3_intersect_clusters(const void* nodes_f, const void* nodes_i,
+                                      const void* tris12, const void* rays,
+                                      int n, int any_hit, void* out_t,
+                                      void* out_tri, void* out_u, void* out_v,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  HC3_LAUNCH(intersect_clusters_kernel, any_hit,
+             static_cast<const float4*>(nodes_f),
+             static_cast<const int4*>(nodes_i),
+             static_cast<const float4*>(tris12),
+             static_cast<const float4*>(rays), n, static_cast<float*>(out_t),
+             static_cast<int*>(out_tri), static_cast<float*>(out_u),
+             static_cast<float*>(out_v));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hc3_cell_pass(const void* cell_tab, const void* cell_cl,
+                             const void* cl_aabb, const void* cl_count,
+                             const void* woop, const void* rays,
+                             const void* cell, int n, int any_hit,
+                             void* best_t, void* best_i, void* best_u,
+                             void* best_v, void* processed, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  HC3_LAUNCH(cell_pass_kernel, any_hit,
+             static_cast<const int4*>(cell_tab),
+             static_cast<const int4*>(cell_cl),
+             static_cast<const float4*>(cl_aabb),
+             static_cast<const int*>(cl_count),
+             static_cast<const float4*>(woop),
+             static_cast<const float4*>(rays), static_cast<const int*>(cell),
+             n, static_cast<float*>(best_t), static_cast<int*>(best_i),
+             static_cast<float*>(best_u), static_cast<float*>(best_v),
+             static_cast<int*>(processed));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,20 +1,22 @@
 """Light sampling, PDFs and intensity (clight.h, integrator_pt_lgt.cpp).
 
 The counterpart of ``hydracore3_tpu/lights.py`` for the light types the
-slice covers: the rect area light and the importance-sampled lat-long
-environment.  The streamed integrator refuses scenes with other light
-types (``models/integrator_pt.check_scene``), so only those two branches
-are computed and merged with selects.
+port covers: the rect area light, the point (omni) and sphere lights and
+the importance-sampled lat-long environment.  The batched integrator
+refuses scenes with other light types (``models/integrator_pt.check_scene``),
+so only those branches are computed and merged with selects.
 """
 from __future__ import annotations
 
 import torch
 
-from .utils.lmath import (M_PI, dot, mul3x3, epsilon_of_pos,
-                          pdf_a_to_w, mul_rows_2x4, sphere_map_to_2d_tex_coord,
+from .utils.lmath import (M_PI, dot, mul3x3, epsilon_of_pos, normalize,
+                          safe_arccos, pdf_a_to_w, mul_rows_2x4,
+                          sphere_map_to_2d_tex_coord,
                           tex_coord_2d_to_sphere_map)
 from .ops import texture as TEX
-from .scene.build import LIGHT_GEOM_ENV
+from .scene.build import (LIGHT_GEOM_ENV, LIGHT_GEOM_SPHERE, LIGHT_GEOM_POINT,
+                          LIGHT_DIST_LAMBERT, LIGHT_DIST_OMNI)
 
 
 def gather_light(scene, light_id):
@@ -23,7 +25,7 @@ def gather_light(scene, light_id):
     return {k: getattr(scene, 'light_' + k)[lid] for k in (
         'pos', 'norm', 'intensity', 'matrix', 'sam_row0', 'sam_row1',
         'sam_row0_inv', 'sam_row1_inv', 'size', 'pdf_a', 'mult', 'geom_type',
-        'pdf_table_offset', 'pdf_table_size_x', 'pdf_table_size_y', 'tex_id',
+        'dist_type', 'pdf_table_offset', 'pdf_table_size_x', 'pdf_table_size_y', 'tex_id',
         'ies_id')}
 
 
@@ -86,8 +88,28 @@ def light_sample_rev(scene, meta, light_id, rands3, illum_point):
            + epsilon_of_pos(ld['pos'][..., :3])[..., None]
            * ld['norm'][..., :3])
     norm = ld['norm'][..., :3]
+    gt = ld['geom_type']
+    # branches of light types the scene lacks are not computed
+    present = set(meta.light_geom_types)
+    if LIGHT_GEOM_SPHERE in present:
+        # sphere (clight.h:86-103)
+        theta = 2.0 * M_PI * rands3[..., 0]
+        phi = safe_arccos(1.0 - 2.0 * rands3[..., 1])
+        sph_dir = torch.stack([torch.sin(phi) * torch.cos(theta),
+                               torch.sin(phi) * torch.sin(theta),
+                               torch.cos(phi)], dim=-1)
+        sph_pos = (ld['pos'][..., :3]
+                   + (ld['size'][..., 0] * 1.000001)[..., None] * sph_dir)
+        is_sphere = (gt == LIGHT_GEOM_SPHERE)[..., None]
+        pos = torch.where(is_sphere, sph_pos, pos)
+        norm = torch.where(is_sphere, normalize(sph_pos - ld['pos'][..., :3]),
+                           norm)
+    if LIGHT_GEOM_POINT in present:
+        # point (clight.h:117-126)
+        pos = torch.where((gt == LIGHT_GEOM_POINT)[..., None],
+                          ld['pos'][..., :3], pos)
     pdf = torch.ones_like(rands3[..., 0])
-    is_omni = torch.zeros_like(rands3[..., 0], dtype=torch.bool)
+    is_omni = (gt == LIGHT_GEOM_POINT) & (ld['dist_type'] == LIGHT_DIST_OMNI)
     if meta.env_enable_sam:
         # env importance sample (integrator_pt_lgt.cpp:30-55)
         is_env = ld['geom_type'] == LIGHT_GEOM_ENV
@@ -103,7 +125,7 @@ def light_sample_rev(scene, meta, light_id, rands3, illum_point):
         pos = torch.where(is_env[..., None], env_pos, pos)
         norm = torch.where(is_env[..., None], sdir, norm)
         pdf = torch.where(is_env, env_pdf, pdf)
-        is_omni = is_env
+        is_omni = is_omni | is_env
     return dict(pos=pos, norm=norm, pdf=pdf, is_omni=is_omni)
 
 
@@ -114,12 +136,21 @@ def light_pdf_select_rev(meta):
 
 def light_eval_pdf(scene, meta, light_id, illum_point, ray_dir, lpos, lnorm,
                    env_pdf):
-    """LightEvalPDF (integrator_pt_lgt.cpp:71-107), rect and env."""
+    """LightEvalPDF (integrator_pt_lgt.cpp:71-107)."""
     ld = gather_light(scene, light_id)
+    gt = ld['geom_type']
     hit_dist = torch.sqrt(((illum_point - lpos) ** 2).sum(-1))
     cos_tmp = dot(ray_dir, -lnorm)
     cos_val = torch.where(ld['ies_id'] < 0, torch.clamp(cos_tmp, min=0.0),
                           cos_tmp.abs())
+    present = set(meta.light_geom_types)
+    if LIGHT_GEOM_POINT in present:
+        cos_point = torch.where(ld['dist_type'] == LIGHT_DIST_LAMBERT,
+                                torch.clamp(cos_tmp, min=0.0), 1.0)
+        cos_val = torch.where(gt == LIGHT_GEOM_POINT, cos_point, cos_val)
+    if LIGHT_GEOM_SPHERE in present:
+        cos_sphere = dot(normalize(lpos - illum_point), lnorm).abs()
+        cos_val = torch.where(gt == LIGHT_GEOM_SPHERE, cos_sphere, cos_val)
     pdf = pdf_a_to_w(ld['pdf_a'], hit_dist, cos_val)
     return torch.where(ld['geom_type'] == LIGHT_GEOM_ENV, env_pdf, pdf)
 

@@ -1,15 +1,26 @@
-"""The batched MIS path tracer on the streamed-BVH scene class.
+"""The batched MIS path tracer on the scene classes with a cluster BVH.
 
 The counterpart of ``hydracore3_tpu/models/integrator_pt.py`` for RGB mode
 and a pinhole camera: one ``trace_pass`` runs a ``[N]`` ray batch through
 init eye rays -> ``trace_depth`` x (sort -> nearest hit -> NEE -> next
 bounce) -> environment.  Dead rays are masked rather than removed, and the
 masked RNG updates keep every ray's random stream identical to the
-reference's per-thread sequence.  Nearest hits go through the grid march
-(``accel/traverse_dda.py``), with the BVH walk
-(``accel/traverse_stream.py``) for lanes the march leaves unresolved; shadow
-rays go through the BVH walk's any-hit query.  Ray flags and RNG states
-are int64 tensors holding uint32 values.
+reference's per-thread sequence.  Ray flags and RNG states are int64
+tensors holding uint32 values.
+
+Three scene classes, as the JAX integrator routes them:
+  * streamed (``meta.use_stream``): nearest hits through the grid march
+    (``accel/traverse_dda.py``), with the BVH walk
+    (``accel/traverse_stream.py``) for lanes the march leaves unresolved;
+    shadow rays through the walk's any-hit query, in a coherence order of
+    their own;
+  * two-level (``meta.use_stream_tlas``): both queries through the TLAS
+    walk (``accel/traverse_tlas.py``); the hit's object-space shade row is
+    taken to world space by the instance's normal matrix and its material
+    id through the instance's remap list; bounce rays are sorted by an
+    octant + origin-Morton key (these scenes have no grid);
+  * mid-size (``meta.use_pallas``): both queries through the cluster walk
+    (``accel/traverse_pallas.py``), unsorted.
 """
 from __future__ import annotations
 
@@ -20,11 +31,14 @@ import torch
 from ..utils import lmath as LM
 from ..ops import rng as RNG
 from ..accel import traverse_dda as TDD
+from ..accel import traverse_pallas as TPL
 from ..accel import traverse_stream as TST
+from ..accel import traverse_tlas as TT
 from ..bsdf import common as C
 from ..bsdf import dispatch as MAT
 from ..scene.build import (MAT_TYPE_LIGHT_SOURCE, EMISSION_COLOR,
-                           LIGHT_GEOM_RECT, LIGHT_GEOM_ENV)
+                           LIGHT_GEOM_RECT, LIGHT_GEOM_ENV, LIGHT_GEOM_SPHERE,
+                           LIGHT_GEOM_POINT)
 from .. import lights as LGT
 
 INTEGRATOR_MIS_PT = 2
@@ -80,11 +94,39 @@ def _grid_cell_key(grid, pos, d):
     return cell * 1024 + (u * 32 + v)
 
 
-def _sort_rays_for_trace(state: RayState, orig, grid):
-    """Bounce-ray coherence sort: live rays by (origin grid cell, direction),
-    dead rays last.  ``orig`` tracks each row's original position so the
-    pass can invert the composed permutation.  Returns (state, orig)."""
-    key = _grid_cell_key(grid, state.ray_pos, state.ray_dir)
+def _morton10(q):
+    """Spread 10-bit ints to every 3rd bit (a 3D Morton code's component)."""
+    q = (q | (q << 16)) & 0x030000FF
+    q = (q | (q << 8)) & 0x0300F00F
+    q = (q | (q << 4)) & 0x030C30C3
+    q = (q | (q << 2)) & 0x09249249
+    return q
+
+
+def _octant_morton_key(pos, d):
+    """Sort key without a grid: (direction octant, 27-bit Morton code of
+    the origin on a 512^3 lattice over the batch's own extent)."""
+    octant = ((d[:, 0] > 0).to(torch.int64) * 4
+              + (d[:, 1] > 0).to(torch.int64) * 2
+              + (d[:, 2] > 0).to(torch.int64))
+    lo = pos.amin(dim=0, keepdim=True)
+    hi = pos.amax(dim=0, keepdim=True)
+    q = torch.clamp((pos - lo) / torch.clamp(hi - lo, min=1e-6) * 511.0,
+                    0, 511).to(torch.int64)
+    key = (_morton10(q[:, 0]) | (_morton10(q[:, 1]) << 1)
+           | (_morton10(q[:, 2]) << 2))
+    return key | (octant << 27)
+
+
+def _sort_rays_for_trace(state: RayState, orig, grid=None):
+    """Bounce-ray coherence sort: live rays by (origin grid cell, direction)
+    or, without a grid, by (direction octant, origin Morton code); dead
+    rays last.  ``orig`` tracks each row's original position so the pass
+    can invert the composed permutation.  Returns (state, orig)."""
+    if grid is not None:
+        key = _grid_cell_key(grid, state.ray_pos, state.ray_dir)
+    else:
+        key = _octant_morton_key(state.ray_pos, state.ray_dir)
     key = torch.where(_is_dead(state.flags), 0x7FFFFFFF, key)
     perm = torch.sort(key, stable=True).indices
     return _permute_state(state, orig, perm)
@@ -142,28 +184,88 @@ def nearest_hit(scene, ray_pos, ray_dir, t_min, t_max):
     return pt, ptri, pu, pv
 
 
+def _remap_material_id(scene, mat_id, inst_id):
+    """RemapMaterialId (integrator_pt_mat.cpp:530-573): the instance's
+    remap list, (from, to) pairs sorted by from, searched by bisection.
+    Reads past the table's end clamp to its last entry, as the JAX
+    package's gathers do (lanes without a list read there and are
+    discarded)."""
+    table = scene.all_remap_lists
+
+    def at(idx):
+        return table[torch.clamp(idx, 0, table.shape[0] - 1)]
+
+    inst = torch.clamp(inst_id, 0, scene.remap_inst.shape[0] - 1)
+    remap_list_id = scene.remap_inst[inst, 0]
+    has_remap = remap_list_id >= 0
+    rl = torch.clamp(remap_list_id, min=0)
+    base = scene.all_remap_lists_size
+    r_offset = at(base + rl)
+    r_size = at(base + rl + 1) - r_offset
+
+    lo = torch.zeros_like(mat_id)
+    hi = r_size - 1
+    for _ in range(20):
+        valid = lo <= hi
+        mid = lo + torch.div(hi - lo, 2, rounding_mode='floor')
+        go_left = at(r_offset + torch.clamp(mid, min=0) * 2) >= mat_id
+        hi = torch.where(valid & go_left, mid - 1, hi)
+        lo = torch.where(valid & ~go_left, mid + 1, lo)
+    pos = torch.clamp(hi + 1, min=0)
+    in_range = hi + 1 < r_size
+    from_id = at(r_offset + pos * 2)
+    to_id = at(r_offset + pos * 2 + 1)
+    remapped = torch.where(in_range & (from_id == mat_id), to_id, mat_id)
+    return torch.where(has_remap, remapped, mat_id)
+
+
+def _lerp_shade(shade, pu, pv):
+    """Barycentric lerp of a [N, 32] shade row: data = (1-u-v) A + u B + v C
+    (integrator_pt.cpp:270).  Returns (norm, tang, uv), not normalized."""
+    data = ((1.0 - pu - pv)[:, None] * shade[:, 0:8]
+            + pu[:, None] * shade[:, 8:16] + pv[:, None] * shade[:, 16:24])
+    return (data[:, 0:3], data[:, 4:7],
+            torch.stack([data[:, 3], data[:, 7]], dim=-1))
+
+
 def kernel_ray_trace(scene, meta, state: RayState, bounce: int) -> RayState:
     """kernel_RayTrace2 (integrator_pt.cpp:214-348): nearest hit + shading
     prep from the baked per-triangle shade rows."""
     live = ~_is_dead(state.flags)
     t_min = torch.zeros_like(state.mis_pdf)
     t_max = torch.where(live, _F32MAX, 0.0)
-    pt, ptri, pu, pv = nearest_hit(scene, state.ray_pos, state.ray_dir,
-                                   t_min, t_max)
-    found = ptri >= 0
-    safe = torch.clamp(ptri, min=0)
+    if meta.use_stream_tlas:
+        # object-space shade rows; normal and tangent through the
+        # instance's normal matrix (integrator_pt.cpp:263-292)
+        pt, ptri, pu, pv, pinst = TT.intersect_stream_tlas(
+            scene.tt, state.ray_pos, state.ray_dir, t_min, t_max)
+        found = ptri >= 0
+        shade = scene.tt_shade[torch.clamp(ptri, min=0)]
+        norm_o, tang_o, hit_uv = _lerp_shade(shade, pu, pv)
+        nm = scene.tt_inst_nm[torch.clamp(pinst, min=0)].reshape(-1, 4, 4)
+        nm = nm[:, :3, :3]
+        hit_norm = (nm * norm_o[:, None, :]).sum(-1)
+        hit_tang = (nm * tang_o[:, None, :]).sum(-1)
+        mid = _remap_material_id(scene, shade[:, 24].to(torch.int64), pinst)
+        hit_inst = torch.where(found, pinst, -1)
+    else:
+        if meta.use_pallas:
+            pt, ptri, pu, pv = TPL.intersect_clusters(
+                scene.cl_nodes_f, scene.cl_nodes_i, scene.cl_tris12,
+                state.ray_pos, state.ray_dir, t_min, t_max)
+        else:
+            pt, ptri, pu, pv = nearest_hit(scene, state.ray_pos,
+                                           state.ray_dir, t_min, t_max)
+        found = ptri >= 0
+        safe = torch.clamp(ptri, min=0)
+        hit_inst = torch.where(found, scene.tri_inst_id[safe], -1)
+        shade = scene.tri_shade[safe]                      # [N, 32]
+        hit_norm, hit_tang, hit_uv = _lerp_shade(shade, pu, pv)
+        mid = shade[:, 24].to(torch.int64)
     hit_t = torch.where(found, pt, _MISS_T)
-    hit_inst = torch.where(found, scene.tri_inst_id[safe], -1)
     hit_pos = state.ray_pos + (hit_t * (1.0 - 1e-6))[:, None] * state.ray_dir
-
-    shade = scene.tri_shade[safe]                      # [N, 32]
-    # barycentric lerp: data = (1-u-v) A + u B + v C (integrator_pt.cpp:270)
-    data = ((1.0 - pu - pv)[:, None] * shade[:, 0:8]
-            + pu[:, None] * shade[:, 8:16] + pv[:, None] * shade[:, 16:24])
-    hit_norm = LM.normalize(data[:, 0:3])
-    hit_tang = LM.normalize(data[:, 4:7])
-    hit_uv = torch.stack([data[:, 3], data[:, 7]], dim=-1)
-    mid = shade[:, 24].to(torch.int64)
+    hit_norm = LM.normalize(hit_norm)
+    hit_tang = LM.normalize(hit_tang)
 
     flip = torch.where(LM.dot(state.ray_dir, hit_norm) > 0.001, -1.0, 1.0)
     hit_norm = flip[:, None] * hit_norm
@@ -229,8 +331,22 @@ def sorted_shadow_query(grid, rays: ShadowRays):
             torch.zeros_like(rays.t_max), rays.t_max[perm])
 
 
+def shadow_occluded_in_lane_order(scene, meta, rays: ShadowRays):
+    """The any-hit shadow query of two-level and mid-size scenes, traced in
+    lane order as the JAX integrator traces it."""
+    query = (rays.pos, rays.dir, torch.zeros_like(rays.t_max), rays.t_max)
+    if meta.use_stream_tlas:
+        stri = TT.intersect_stream_tlas(scene.tt, *query, any_hit=True)[1]
+    else:
+        stri = TPL.intersect_clusters(
+            scene.cl_nodes_f, scene.cl_nodes_i, scene.cl_tris12, *query,
+            any_hit=True)[1]
+    return stri >= 0
+
+
 def shadow_occluded(scene, rays: ShadowRays):
-    """Any-hit shadow query in coherence order, inverted by a scatter."""
+    """The streamed scene's any-hit shadow query, traced in a coherence
+    order of its own and inverted by a scatter."""
     perm, *query = sorted_shadow_query(scene.st_grid, rays)
     _, stri, _, _ = TST.intersect_stream(
         scene.st_nodes_f, scene.st_nodes_i, scene.st_woop, *query,
@@ -246,7 +362,9 @@ def kernel_sample_light_source(scene, meta, state: RayState, ctx):
     Returns (shade_color [N, 4], new rng state)."""
     rng_state, light_id, lsam, rays = sample_shadow_rays(scene, meta, state)
     shadow_pos, shadow_dir = rays.pos, rays.dir
-    need_shade = rays.need_trace & ~shadow_occluded(scene, rays)
+    occluded = (shadow_occluded(scene, rays) if meta.use_stream else
+                shadow_occluded_in_lane_order(scene, meta, rays))
+    need_shade = rays.need_trace & ~occluded
 
     bsdf = MAT.material_eval(ctx, shadow_dir, -state.ray_dir)
     cos_out = torch.clamp(LM.dot(shadow_dir, state.hit_norm), min=0.0)
@@ -254,6 +372,11 @@ def kernel_sample_light_source(scene, meta, state: RayState, ctx):
         scene, meta, light_id, shadow_pos, shadow_dir, lsam['pos'],
         lsam['norm'], lsam['pdf'])
     mis = LM.mis_weight_heuristic(lgt_pdf_w, bsdf['pdf'])
+    if LIGHT_GEOM_POINT in meta.light_geom_types:
+        # a point light cannot be hit by a BSDF sample: no MIS partner
+        lid = torch.clamp(light_id, 0, meta.num_lights - 1)
+        mis = torch.where(scene.light_geom_type[lid] == LIGHT_GEOM_POINT,
+                          1.0, mis)
     light_color = LGT.light_intensity(scene, meta, light_id, shadow_dir)
     shade = (light_color * bsdf['val']
              / torch.clamp(lgt_pdf_w, min=1e-30)[:, None]
@@ -275,7 +398,9 @@ def kernel_next_bounce(scene, meta, state: RayState, bounce: int,
     has_light = light_id >= 0
     ld_hit = LGT.gather_light(scene, light_id)
     light_cos = LM.dot(state.ray_dir, ld_hit['norm'][:, :3])
-    atten = torch.where(light_cos < 0.0, 1.0, 0.0)
+    atten = torch.where(
+        (light_cos < 0.0) | (ld_hit['geom_type'] == LIGHT_GEOM_SPHERE),
+        1.0, 0.0)
     li_from_light = (LGT.light_intensity(scene, meta, light_id, state.ray_dir)
                      * atten[:, None])
     light_intensity = torch.where(has_light[:, None], li_from_light,
@@ -343,15 +468,17 @@ def kernel_hit_environment(scene, meta, state: RayState) -> RayState:
 
 
 def check_scene(meta):
-    """Refuse what this path cannot shade: small scenes (no cluster BVH)
-    and lights other than rect and env (``lights.py`` samples every light
-    as a rect, and the light-hit attenuation has no sphere term)."""
-    if not meta.use_stream:
-        raise NotImplementedError('the streamed path needs a streamed scene')
-    other = set(meta.light_geom_types) - {LIGHT_GEOM_RECT, LIGHT_GEOM_ENV}
+    """Refuse what this path cannot trace or shade: small scenes (no
+    cluster BVH of any kind) and lights other than rect, point, sphere and
+    env."""
+    if not (meta.use_stream or meta.use_stream_tlas or meta.use_pallas):
+        raise NotImplementedError('the batched path needs a streamed, '
+                                  'two-level or cluster-BVH scene')
+    other = set(meta.light_geom_types) - {LIGHT_GEOM_RECT, LIGHT_GEOM_ENV,
+                                          LIGHT_GEOM_SPHERE, LIGHT_GEOM_POINT}
     if other:
         raise NotImplementedError(f'light geometry {sorted(other)} is not '
-                                  'ported to the streamed path')
+                                  'ported to the batched path')
 
 
 def trace_pass(scene, meta, rng_state, pixel_ids,
@@ -365,8 +492,12 @@ def trace_pass(scene, meta, rng_state, pixel_ids,
     check_scene(meta)
     state = kernel_init_eye_ray(scene, meta, rng_state, pixel_ids)
     orig = torch.arange(pixel_ids.shape[0], device=pixel_ids.device)
+    # streamed and two-level scenes sort live rays into coherent order
+    # before every secondary trace (by grid cell, or by Morton code where
+    # there is no grid); mid-size scenes trace unsorted
+    sort_rays = meta.use_stream or meta.use_stream_tlas
     for b in range(meta.trace_depth):
-        if b > 0:
+        if sort_rays and b > 0:
             state, orig = _sort_rays_for_trace(state, orig, scene.st_grid)
         state = kernel_ray_trace(scene, meta, state, b)
         ctx = MAT.make_shading_ctx(scene, meta, _extract_mat_id(state.flags),

@@ -4,8 +4,9 @@ The counterpart of ``hydracore3_tpu/render.py``'s ``render``.  Small scenes
 (the JAX build's brute-traced class, fewer than 4096 triangles) go to the
 megakernel (``models/megakernel.py``) when its gate admits them, as the JAX
 router sends them on the TPU (``hydracore3_tpu/render.py:248-261``); on a
-CUDA card that needs no switch.  Streamed scenes run the batched MIS
-integrator: the whole spp budget tile by tile, each tile carrying its own
+CUDA card that needs no switch.  Streamed, two-level
+(``meta.use_stream_tlas``) and mid-size (``meta.use_pallas``) scenes run
+the batched MIS integrator: the whole spp budget tile by tile, each tile carrying its own
 per-pixel RNG state, the framebuffer normalized by 1/spp.  RGB color layer
 only.
 """
@@ -36,12 +37,12 @@ def render(scene, meta, spp: int = None, integrator: str = 'mispt',
     """Render a full frame: float32 numpy [H, W, 4] (RGBA), normalized.
 
     ``regen`` is the megakernel's (persistent lanes) and is ignored on
-    streamed scenes, as the JAX router ignores it there.  With ``return_timing`` also returns
+    the batched integrator's scenes, as the JAX router ignores it there.  With ``return_timing`` also returns
     dict(total_s, spp, rays, nonfinite), ``nonfinite`` counting lane
     samples with a non-finite contribution (nothing is scrubbed)."""
     if layer != 'color':
         raise NotImplementedError(f'layer={layer!r} is not ported')
-    if not meta.use_stream:
+    if not (meta.use_stream or meta.use_stream_tlas or meta.use_pallas):
         return MK.render(scene, meta, spp=spp, integrator=integrator,
                          regen=regen, return_timing=return_timing)
     if integrator not in INTEGRATOR_BY_NAME:

@@ -11,9 +11,14 @@ light-material intensity sync.  The streamed branch of the JAX build then
 gives the triangle soup in padded leaf-cluster order, the skip-pointer BVH
 nodes, the Woop rows and the march grid.
 
-Scenes of fewer than 4096 triangles take the JAX build's small-scene
-branch instead: the soup in the leaf order of a 4-triangle-leaf BVH and no
-cluster BVH or grid (the megakernel's brute trace reads the soup).
+The routes of the JAX build (``accel='auto'``): an instanced scene whose
+flattened soup would pass 200,000 triangles and twice its unique triangles
+keeps every mesh once, in object space, under a TLAS over its instances
+(``use_stream_tlas``; no world soup is built); a soup of 4096 to 175,000
+triangles gets the unpadded cluster BVH (``use_pallas``); a larger one is
+streamed (``use_stream``); a smaller one takes the small-scene branch: the
+soup in the leaf order of a 4-triangle-leaf BVH and no cluster BVH or grid
+(the megakernel's brute trace reads the soup).
 
 Covered: lambert materials with an optional slot-0 diffuse texture and an
 optional phong reflectivity (the old-Hydra lambert|metal and metal
@@ -185,6 +190,8 @@ class SceneMeta:
     num_tris: int
     exposure_mult: float = 1.0
     use_stream: bool = True
+    use_stream_tlas: bool = False    # instanced: TLAS over per-mesh BVHs
+    use_pallas: bool = False         # mid-size soup: unpadded cluster BVH
     mat_types_present: tuple = ()
     light_geom_types: tuple = ()     # per light, in table order
     # every material's slot-0 texture is 1x1: taps fold to constants
@@ -220,7 +227,9 @@ class Scene:
     light_pdf_table_size_y: torch.Tensor
     light_tex_id: torch.Tensor
     light_ies_id: torch.Tensor
-    # padded leaf-cluster-order soup [Tpad, ...]
+    # the world-space soup [T, ...]: padded leaf-cluster order when
+    # streamed, cluster-BVH leaf order for mid-size scenes, one zero row for
+    # two-level (TLAS) scenes, which keep no world soup
     tri_v0: torch.Tensor
     tri_e1: torch.Tensor
     tri_e2: torch.Tensor
@@ -230,6 +239,10 @@ class Scene:
     # [Tpad, 32]: 3 x (norm3, tx, tang3, ty), matId in column 24
     tri_shade: torch.Tensor
     remap_inst: torch.Tensor      # [I, 2] i64 (remap list, light id)
+    # remap lists: (from, to) pairs sorted by from, all lists concatenated,
+    # then their offsets (starting at all_remap_lists_size)
+    all_remap_lists: torch.Tensor     # i64
+    all_remap_lists_size: int
     arrays1f: torch.Tensor        # f32 env pdf tables
     env_color: torch.Tensor       # [4]
     env_tex_id: torch.Tensor      # scalar i64
@@ -248,6 +261,19 @@ class Scene:
     st_nodes_i: Optional[torch.Tensor]      # [M, 4] i32
     st_woop: Optional[torch.Tensor]         # [C * 64, 12] f32
     st_grid: object               # accel.traverse_dda.GridPack or None
+    # mid-size soups: the unpadded cluster BVH (meta.use_pallas), else None
+    cl_nodes_f: Optional[torch.Tensor] = None   # [M, 8] f32
+    cl_nodes_i: Optional[torch.Tensor] = None   # [M, 4] i32 (skip, toff, tcnt)
+    cl_tris12: Optional[torch.Tensor] = None    # [T, 12] f32 (v0, e1, e2)
+    # two-level scenes (meta.use_stream_tlas), else None: the kernel's
+    # tables and, per padded leaf slot of the per-mesh BVHs, OBJECT-space
+    # shade rows (the UNREMAPPED material id in column 24), mesh id and the
+    # mesh's primitive id; per instance the normal matrix
+    tt: object = None                           # accel.traverse_tlas.TlasPack
+    tt_shade: Optional[torch.Tensor] = None     # [C * 64, 32] f32
+    tt_geom: Optional[torch.Tensor] = None      # [C * 64] i64
+    tt_prim: Optional[torch.Tensor] = None      # [C * 64] i64
+    tt_inst_nm: Optional[torch.Tensor] = None   # [I, 16] f32
 
     def to_numpy(self) -> dict:
         """Every table as a numpy array (texture pool and grid flattened)."""
@@ -258,6 +284,9 @@ class Scene:
                 out[f.name] = val.cpu().numpy()
         for f in dataclasses.fields(self.textures):
             out['tex_' + f.name] = getattr(self.textures, f.name).cpu().numpy()
+        if self.tt is not None:
+            for f in dataclasses.fields(self.tt):
+                out['tt_' + f.name] = getattr(self.tt, f.name).cpu().numpy()
         g = self.st_grid
         if g is None:
             return out
@@ -301,6 +330,92 @@ def _face_normals_to_vertices(pos3, indices):
         np.add.at(n, ind[:, k], fn)
     ln = np.linalg.norm(n, axis=-1, keepdims=True)
     return n / np.maximum(ln, 1e-20)
+
+
+def _mesh_arrays(mesh: MeshDesc):
+    """(pos [V, 3], idx [T, 3], vertex normals [V, 3], texc [V, 2])."""
+    p3 = np.asarray(mesh.pos, np.float32)
+    idx = np.asarray(mesh.indices, np.int64).reshape(-1, 3)
+    v_norm = (_face_normals_to_vertices(p3, idx) if mesh.norm is None
+              else np.asarray(mesh.norm, np.float32))
+    texc = (np.zeros((len(p3), 2), np.float32) if mesh.texc is None
+            else np.asarray(mesh.texc, np.float32))
+    return p3, idx, v_norm, texc
+
+
+def _shade_rows(idx, norm, tang, texc) -> np.ndarray:
+    """[T, 24] per-triangle shading rows: 3 x (norm3, tx, tang3, ty)."""
+    sh = np.zeros((len(idx), 24), np.float32)
+    for c in range(3):
+        vi = idx[:, c]
+        sh[:, c * 8 + 0:c * 8 + 3] = norm[vi]
+        sh[:, c * 8 + 3] = texc[vi, 0]
+        sh[:, c * 8 + 4:c * 8 + 7] = tang[vi]
+        sh[:, c * 8 + 7] = texc[vi, 1]
+    return sh
+
+
+def _pad_shade(shade, mat_id) -> np.ndarray:
+    """[T4, 32] rows padded to a multiple of 4, matId in column 24."""
+    out = np.zeros((max(-(-len(shade) // 4) * 4, 4), 32), np.float32)
+    out[:len(shade), :24] = shade
+    out[:len(shade), 24] = np.asarray(mat_id).astype(np.float32)
+    return out
+
+
+def _world_soup(meshes, instances):
+    """Every instance flattened into world space (LoadSceneInstances):
+    (v0, e1, e2, [inst id, mesh id, prim id, shade rows [T, 24], mat id])."""
+    v0l, e1l, e2l, instl, geoml, priml, shadel, matl = ([] for _ in range(8))
+    for real_id, (mesh_id, m, _) in enumerate(instances):
+        p3, idx, v_norm, texc = _mesh_arrays(meshes[mesh_id])
+        nm = np.linalg.inv(m).T.astype(np.float32)
+        pos = p3 @ m[:3, :3].T + m[:3, 3]
+        v0 = pos[idx[:, 0]]
+        v0l.append(v0)
+        e1l.append(pos[idx[:, 1]] - v0)
+        e2l.append(pos[idx[:, 2]] - v0)
+        nt = len(idx)
+        instl.append(np.full(nt, real_id, np.int32))
+        geoml.append(np.full(nt, mesh_id, np.int32))
+        priml.append(np.arange(nt, dtype=np.int32))
+        shadel.append(_shade_rows(
+            idx, v_norm @ nm[:3, :3].T,
+            np.zeros((len(p3), 3), np.float32) @ nm[:3, :3].T, texc))
+        matl.append(np.asarray(meshes[mesh_id].mat_indices, np.int64)
+                    .astype(np.int32))
+    return (np.concatenate(v0l), np.concatenate(e1l), np.concatenate(e2l),
+            [np.concatenate(a) for a in (instl, geoml, priml, shadel, matl)])
+
+
+def _two_level_tables(meshes, instances):
+    """The ``accel='stream_tlas'`` tables (hydracore3_tpu/scene/build.py:
+    1276-1313): every mesh once in object space under a TLAS over the
+    instances.  Returns (TlasPack, shade [C * 64, 32], geom, prim,
+    inst_nm)."""
+    from ..accel import traverse_tlas as TT
+    mesh_tris, mesh_shade, mesh_mats = [], [], []
+    for mesh in meshes:
+        p3, idx, v_norm, texc = _mesh_arrays(mesh)
+        mv0 = p3[idx[:, 0]]
+        mesh_tris.append((mv0, p3[idx[:, 1]] - mv0, p3[idx[:, 2]] - mv0))
+        mesh_shade.append(_shade_rows(idx, v_norm, np.zeros_like(p3), texc))
+        mesh_mats.append(np.asarray(mesh.mat_indices, np.int64)
+                         .astype(np.int32))
+    pk = TT.pack_stream_tlas(mesh_tris, [dict(geom_id=mesh_id, m0=m)
+                                         for mesh_id, m, _ in instances])
+    # per padded slot: object-space shade rows and unremapped material ids
+    # (the per-instance remap runs at trace time)
+    op, tmsh = pk['order_padded'], pk['tri_mesh']
+    tt_sh = np.zeros((len(op), 24), np.float32)
+    tt_mat = np.zeros(len(op), np.int32)
+    for g in range(len(meshes)):
+        selm = tmsh == g
+        tt_sh[selm] = mesh_shade[g][op[selm]]
+        tt_mat[selm] = mesh_mats[g][op[selm]]
+    return (TT.tlas_pack(pk), _pad_shade(tt_sh, tt_mat),
+            np.maximum(tmsh, 0).astype(np.int32),
+            np.maximum(op, 0).astype(np.int32), pk['inst_nm'])
 
 
 class _MaterialRec:
@@ -468,22 +583,36 @@ def _tex0_consts(mats, pool: TEX.TexturePoolBuilder):
     return out
 
 
-def build_scene(desc: SceneDesc, device='cpu', accel: str = 'auto'
+def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
                 ) -> tuple[Scene, SceneMeta]:
-    """Build the device tables of ``desc`` on ``device``.
+    """Build the device tables of ``desc`` on ``device``.  With no device
+    given they go to the CUDA card, and the build raises where there is
+    none: a scene lands on the CPU (where every ray query runs its plain
+    version) only when the caller asks for ``device='cpu'``.
 
-    ``accel='auto'`` keeps scenes of fewer than ``SMALL_SCENE_TRIS``
-    triangles as a brute-traced soup in BVH leaf order (the megakernel's
-    class) and streams the rest through the cluster BVH and its grid (the
-    JAX build's ``use_stream`` branch; the port meets its 4096-175k
-    cluster class with the same kernels); ``accel='stream'`` streams every
-    scene."""
-    if accel not in ('auto', 'stream'):
+    ``accel='auto'`` follows the JAX build: an instanced scene whose
+    flattened soup would hold over 200,000 triangles and over twice its
+    unique triangles goes two-level (``meta.use_stream_tlas``); otherwise a
+    soup of fewer than ``SMALL_SCENE_TRIS`` triangles stays a brute-traced
+    soup in BVH leaf order (the megakernel's class), one of up to
+    ``VMEM_TRI_LIMIT`` (175,000) gets the unpadded cluster BVH
+    (``meta.use_pallas``) and a larger one is streamed through the padded
+    cluster BVH and its grid (``meta.use_stream``).  ``accel='stream'``
+    streams any scene and ``accel='stream_tlas'`` builds any scene
+    two-level."""
+    if accel not in ('auto', 'stream', 'stream_tlas'):
         raise NotImplementedError(f'accel={accel!r} is not ported')
     from ..accel import build_bvh
     from ..accel import traverse_stream as TST
     from ..accel import traverse_dda as TDD
+    from ..accel import traverse_pallas as TPL
 
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_scene: no CUDA device; pass device='cpu' to build "
+                "the scene for the plain CPU path")
+        device = 'cuda'
     device = torch.device(device)
     tc = _TexCache(desc.textures)
 
@@ -579,45 +708,31 @@ def build_scene(desc: SceneDesc, device='cpu', accel: str = 'auto'
     proj_inv = np.linalg.inv(proj).astype(np.float32)
     world_view_inv = np.linalg.inv(world_view).astype(np.float32)
 
-    # ---- world-space soup (LoadSceneInstances) -----------------------------
-    v0l, e1l, e2l, instl, geoml, priml, shadel, matl = ([] for _ in range(8))
-    remap_inst = []
-    for real_id, (mesh_id, m, light_id) in enumerate(instances):
-        mesh = meshes[mesh_id]
-        p3 = np.asarray(mesh.pos, np.float32)
-        idx = np.asarray(mesh.indices, np.int64).reshape(-1, 3)
-        v_norm = (_face_normals_to_vertices(p3, idx) if mesh.norm is None
-                  else np.asarray(mesh.norm, np.float32))
-        texc = (np.zeros((len(p3), 2), np.float32) if mesh.texc is None
-                else np.asarray(mesh.texc, np.float32))
-        nm = np.linalg.inv(m).T.astype(np.float32)
-        remap_inst.append((-1, light_id))
-        pos = p3 @ m[:3, :3].T + m[:3, 3]
-        v0 = pos[idx[:, 0]]
-        v0l.append(v0)
-        e1l.append(pos[idx[:, 1]] - v0)
-        e2l.append(pos[idx[:, 2]] - v0)
-        nt = len(idx)
-        instl.append(np.full(nt, real_id, np.int32))
-        geoml.append(np.full(nt, mesh_id, np.int32))
-        priml.append(np.arange(nt, dtype=np.int32))
-        wnorm = v_norm @ nm[:3, :3].T
-        wtang = np.zeros((len(p3), 3), np.float32) @ nm[:3, :3].T
-        sh = np.zeros((nt, 24), np.float32)
-        for c in range(3):
-            vi = idx[:, c]
-            sh[:, c * 8 + 0:c * 8 + 3] = wnorm[vi]
-            sh[:, c * 8 + 3] = texc[vi, 0]
-            sh[:, c * 8 + 4:c * 8 + 7] = wtang[vi]
-            sh[:, c * 8 + 7] = texc[vi, 1]
-        shadel.append(sh)
-        matl.append(np.asarray(mesh.mat_indices, np.int64).astype(np.int32))
-    soup_v0, soup_e1, soup_e2 = (np.concatenate(v0l), np.concatenate(e1l),
-                                 np.concatenate(e2l))
-    soup = [np.concatenate(a) for a in (instl, geoml, priml, shadel, matl)]
+    # ---- two-level, or the world-space soup (LoadSceneInstances) -----------
+    soup_T = sum(len(np.asarray(meshes[mesh_id].indices).reshape(-1, 3))
+                 for mesh_id, _, _ in instances)
+    unique_T = sum(len(np.asarray(mesh.indices).reshape(-1, 3))
+                   for mesh in meshes)
+    use_stream_tlas = accel == 'stream_tlas' or (
+        accel == 'auto' and soup_T > 200_000 and soup_T > 2 * unique_T)
+    remap_inst = [(-1, light_id) for _, _, light_id in instances]
+    two_level = None
+    if use_stream_tlas:
+        # every mesh once, in object space; no world soup (one zero row)
+        two_level = _two_level_tables(meshes, instances)
+        soup_v0, soup_e1, soup_e2 = (np.zeros((1, 3), np.float32)
+                                     for _ in range(3))
+        soup = [np.zeros(1, np.int32), np.zeros(1, np.int32),
+                np.zeros(1, np.int32), np.zeros((1, 24), np.float32),
+                np.zeros(1, np.int32)]
+    else:
+        soup_v0, soup_e1, soup_e2, soup = _world_soup(meshes, instances)
 
-    use_stream = accel == 'stream' or len(soup_v0) >= SMALL_SCENE_TRIS
-    stream = None
+    use_stream = not use_stream_tlas and (
+        accel == 'stream' or len(soup_v0) > TPL.VMEM_TRI_LIMIT)
+    use_pallas = (not use_stream_tlas and not use_stream
+                  and len(soup_v0) >= SMALL_SCENE_TRIS)
+    stream = clusters = None
     if use_stream:
         # streamed cluster BVH: padded leaf-cluster order
         cbvh = build_bvh.build(soup_v0, soup_e1, soup_e2, max_leaf=TST.TBK)
@@ -635,17 +750,19 @@ def build_scene(desc: SceneDesc, device='cpu', accel: str = 'auto'
             a[pad_rows] = 0.0
         soup = [a[sel] for a in soup]
         soup[3][pad_rows] = 0.0
-    else:
-        # small scene: the soup in the leaf order of a 4-triangle-leaf BVH
-        order = build_bvh.build(soup_v0, soup_e1, soup_e2, max_leaf=4).order
+    elif not use_stream_tlas:
+        # mid-size: the soup in the cluster BVH's leaf order, unpadded;
+        # small: in the leaf order of a 4-triangle-leaf BVH
+        cbvh = build_bvh.build(soup_v0, soup_e1, soup_e2,
+                               max_leaf=TPL.CLUSTER if use_pallas else 4)
+        order = cbvh.order
         soup_v0, soup_e1, soup_e2 = (soup_v0[order], soup_e1[order],
                                      soup_e2[order])
         soup = [a[order] for a in soup]
+        if use_pallas:
+            clusters = TPL.pack_cluster_bvh(cbvh, soup_v0, soup_e1, soup_e2)
     inst, geom, prim, shade, mat_id = soup
-    # _pad_shade: rows padded to a multiple of 4, matId in column 24
-    tri_shade = np.zeros((max(-(-len(shade) // 4) * 4, 4), 32), np.float32)
-    tri_shade[:len(shade), :24] = shade
-    tri_shade[:len(shade), 24] = mat_id.astype(np.float32)
+    tri_shade = _pad_shade(shade, mat_id)
     tex0_const = _tex0_consts(mats, tc.pool)
 
     pool = tc.pool.finish(device)
@@ -686,6 +803,8 @@ def build_scene(desc: SceneDesc, device='cpu', accel: str = 'auto'
         tri_prim_id=dev(prim, np.int64),
         tri_shade=dev(tri_shade),
         remap_inst=dev(remap_inst, np.int64),
+        # no description carries a remap list yet: the empty table
+        all_remap_lists=dev([0], np.int64), all_remap_lists_size=0,
         arrays1f=dev(_pad128(np.concatenate(arrays1f) if arrays1f
                              else np.zeros(1, np.float32))),
         env_color=dev(env['color']),
@@ -699,12 +818,22 @@ def build_scene(desc: SceneDesc, device='cpu', accel: str = 'auto'
         st_nodes_f=None if stream is None else dev(stream[0]),
         st_nodes_i=None if stream is None else dev(stream[1]),
         st_woop=None if stream is None else dev(stream[2]),
-        st_grid=None if stream is None else stream[3].to(device))
+        st_grid=None if stream is None else stream[3].to(device),
+        cl_nodes_f=None if clusters is None else dev(clusters[0]),
+        cl_nodes_i=None if clusters is None else dev(clusters[1]),
+        cl_tris12=None if clusters is None else dev(clusters[2]),
+        tt=None if two_level is None else two_level[0].to(device),
+        tt_shade=None if two_level is None else dev(two_level[1]),
+        tt_geom=None if two_level is None else dev(two_level[2], np.int64),
+        tt_prim=None if two_level is None else dev(two_level[3], np.int64),
+        tt_inst_nm=None if two_level is None else dev(two_level[4]))
     meta = SceneMeta(
         width=desc.width, height=desc.height, trace_depth=desc.trace_depth,
         spp=desc.spp, num_lights=len(lights), num_materials=len(mats),
         has_env_map=env['tex_id'] >= 0, env_enable_sam=env['tex_id'] >= 0,
-        num_tris=int(len(soup_v0)), use_stream=use_stream,
+        num_tris=soup_T if use_stream_tlas else int(len(soup_v0)),
+        use_stream=use_stream, use_stream_tlas=use_stream_tlas,
+        use_pallas=use_pallas,
         mat_types_present=tuple(sorted({m_.mtype for m_ in mats})),
         light_geom_types=tuple(int(l['geom_type']) for l in lights),
         tex0_all_const=tex0_const is not None)

@@ -1,4 +1,4 @@
-"""The port's in-repo scenes, built in numpy: the city and the box.
+"""The port's in-repo scenes, built in numpy: the cities and the box.
 
 The city is the counterpart of ``hydracore3_tpu/scene/synth.py``: the same
 geometry, procedural textures, lights and camera from the same numpy RNG
@@ -6,6 +6,11 @@ draws in the same order, emitted as an in-memory ``SceneDesc`` (no XML) and
 built by ``scene.build.build_scene``.  At the bench size (48 x 48 blocks,
 subdiv 3, 64 x 64 ground) the city has 215,554 triangles: 48^2 buildings
 of 90, an 8192-triangle ground and the area light's 2.
+
+The instanced city (``instanced_city_scene``) is one unit building mesh of
+90 triangles placed ``n_blocks``^2 times with a rotation and a non-uniform
+scale, a ground mesh and the area light; untextured, no environment.  Built
+two-level (``accel='stream_tlas'``) it keeps each mesh once.
 
 The box is the Cornell-class scene of ``tests/test_api.py:16-42`` (12
 triangles, one area light), optionally with a textured quad, a glossy
@@ -179,10 +184,69 @@ def build_city(n_blocks: int = 48, subdiv: int = 3, seed: int = 7,
 def city_scene(n_blocks: int = 48, subdiv: int = 3, seed: int = 7,
                width: int = 1024, height: int = 1024, depth: int = 5,
                ground_subdiv: int = 64, textured: bool = False,
-               device='cpu', accel: str = 'auto'):
-    """Build the city on ``device``; returns (scene, meta)."""
+               device=None, accel: str = 'auto'):
+    """Build the city on ``device`` (None: the CUDA card); returns
+    (scene, meta)."""
     sd = build_city(n_blocks, subdiv, seed, width, height, depth,
                     ground_subdiv, textured=textured)
+    return B.build_scene(sd, device=device, accel=accel)
+
+
+def build_instanced_city(n_blocks: int = 32, subdiv: int = 3, seed: int = 7,
+                         width: int = 1024, height: int = 1024,
+                         depth: int = 5, ground_subdiv: int = 32
+                         ) -> B.SceneDesc:
+    """The instanced city description: the JAX package's
+    ``build_instanced_city``, the same RNG draws in the same order."""
+    rng = np.random.default_rng(seed)
+    sd = B.SceneDesc(width=width, height=height, trace_depth=depth, spp=64)
+    sd.materials += [
+        B.MaterialDesc(name='ground', diffuse_color=(0.30, 0.30, 0.32)),
+        B.MaterialDesc(name='wall', diffuse_color=(0.62, 0.55, 0.48))]
+    m_ground, m_wall = 0, 1
+
+    pitch = 8.0
+    half = n_blocks * pitch * 0.5 + 20.0
+    gp, gi, _ = _ground(half, ground_subdiv)
+    sd.meshes.append(B.MeshDesc(pos=gp, indices=gi,
+                                mat_indices=np.full(len(gi), m_ground)))
+    sd.instances.append((0, None))
+    bp, bi, _ = _box(0.0, 0.0, 1.0, 1.0, 1.0, subdiv)   # unit building
+    sd.meshes.append(B.MeshDesc(pos=bp, indices=bi,
+                                mat_indices=np.full(len(bi), m_wall)))
+    for by in range(n_blocks):
+        for bx in range(n_blocks):
+            cx = (bx - n_blocks / 2 + 0.5) * pitch + rng.uniform(-0.8, 0.8)
+            cz = (by - n_blocks / 2 + 0.5) * pitch + rng.uniform(-0.8, 0.8)
+            sx = rng.uniform(2.0, 3.2)
+            sz = rng.uniform(2.0, 3.2)
+            sy = rng.uniform(4.0, 28.0)
+            a = rng.uniform(0, np.pi / 2)
+            c, s = np.cos(a), np.sin(a)
+            sd.instances.append((1, np.array([[c * sx, 0, s * sz, cx],
+                                              [0, sy, 0, 0],
+                                              [-s * sx, 0, c * sz, cz],
+                                              [0, 0, 0, 1]], np.float32)))
+
+    lm = np.eye(4, dtype=np.float32)
+    lm[1, 3] = 60.0
+    sd.lights.append(B.AreaLightDesc(color=(1.0, 1.0, 1.0), multiplier=16.0,
+                                     half_width=40.0, half_length=40.0,
+                                     matrix=lm))
+    sd.camera = B.CameraDesc(fov=60.0, pos=(0.0, 14.0, half * 0.92),
+                             look_at=(0.0, 4.0, 0.0), up=(0.0, 1.0, 0.0),
+                             near=0.1, far=1000.0)
+    return sd
+
+
+def instanced_city_scene(n_blocks: int = 32, subdiv: int = 3, seed: int = 7,
+                         width: int = 1024, height: int = 1024,
+                         depth: int = 5, ground_subdiv: int = 32,
+                         accel: str = 'stream_tlas', device=None):
+    """Build the instanced city on ``device`` (None: the CUDA card);
+    returns (scene, meta)."""
+    sd = build_instanced_city(n_blocks, subdiv, seed, width, height, depth,
+                              ground_subdiv)
     return B.build_scene(sd, device=device, accel=accel)
 
 
@@ -251,7 +315,8 @@ def build_box(width: int = 64, height: int = 48, depth: int = 4,
 
 
 def box_scene(width: int = 64, height: int = 48, depth: int = 4,
-              textured: bool = False, device='cpu'):
-    """Build the box on ``device``; returns (scene, meta)."""
+              textured: bool = False, device=None):
+    """Build the box on ``device`` (None: the CUDA card); returns
+    (scene, meta)."""
     return B.build_scene(build_box(width, height, depth, textured),
                          device=device)

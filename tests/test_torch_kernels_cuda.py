@@ -4,9 +4,11 @@ Run on a machine with a CUDA card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py -q`` (this file imports nothing of JAX, and
 ``--noconftest`` skips tests/conftest.py, which does).  Without a card every
 test skips (the check happens inside the ``cuda`` fixture, never at
-import).  Agreement bars: K2/K3 hit masks equal on >= 99.9% of rays, t within
-rtol 2e-4 where both hit (nvcc contracts the Woop arithmetic into FMAs, so
-equal-t ties and knife-edge lanes may differ); the K1 megakernel entry
+import).  Agreement bars: the ray-query kernels' (K2-K6) hit masks equal on
+>= 99.9% of rays, t within rtol 2e-4 where both hit (nvcc contracts the Woop
+and Moller-Trumbore arithmetic into FMAs, so equal-t ties and knife-edge
+lanes may differ), the two-level kernel's instance ids equal wherever the
+triangle is; the K1 megakernel entry
 points on every lane: RNG, flags and counts equal and the f32 rows within
 ``megakernel.KERNEL_TOL`` (built without FMA contraction; rsqrtf, sinf and
 cosf are the card's, as in torch's own CUDA ops).
@@ -19,10 +21,15 @@ import torch
 
 from hydracore3_torch.accel import build_bvh as TB
 from hydracore3_torch.accel import traverse_dda as TTD
+from hydracore3_torch.accel import traverse_pallas as TTP
 from hydracore3_torch.accel import traverse_stream as TTS
+from hydracore3_torch.accel import traverse_tlas as TTT
 from hydracore3_torch.models import megakernel as TMK
 
 pytestmark = pytest.mark.cuda
+
+# the integrator's t_max of a live ray: the largest float32
+IPT_FLT_MAX = float(np.finfo(np.float32).max)
 
 # tests/test_big_scene.py's small city, textured
 CITY_KW = dict(n_blocks=4, subdiv=1, seed=3, width=32, height=16, depth=2,
@@ -57,13 +64,18 @@ def cuda():
     return torch.device('cuda')
 
 
-def _agree(kernel, plain):
-    kt, ktri = kernel[0].cpu().numpy(), kernel[1].cpu().numpy()
-    pt, ptri = plain[0].cpu().numpy(), plain[1].cpu().numpy()
-    kh, ph = ktri >= 0, ptri >= 0
-    both = kh & ph
-    t_ok = np.isclose(kt[both], pt[both], rtol=2e-4, atol=1e-5)
-    return (kh == ph).mean(), (t_ok.mean() if both.any() else 1.0), both
+UV_TOL = 1e-4
+
+
+def _agree(kernel, plain, any_hit=False):
+    """(share of equal hit flags, share of both-hit lanes with t equal,
+    count of both-hit lanes); fails unless at least 0.999 of the both-hit
+    lanes report the same triangle and u, v agree to UV_TOL on every lane
+    that does."""
+    a = TTS.hits_agree(kernel, plain, any_hit)
+    assert a['tri_eq'] >= 0.999, a
+    assert a['max_duv'] <= UV_TOL, a
+    return a['hit_eq'], a['t_ok'], a['both']
 
 
 def _soup(cuda, seed=31, n_tris=1500, n_rays=4096):
@@ -86,11 +98,11 @@ def test_stream_kernel_matches_plain(cuda, any_hit):
     assert TTS.intersect_stream.launches == before + 1
     p = TTS.intersect_plain(woop, pos, d, tmin, torch.clamp(
         tmax, max=0.99 * TTS.FLT_MAX), any_hit)
-    hit_eq, t_eq, both = _agree(k, p)
+    hit_eq, t_eq, both = _agree(k, p, any_hit)
     assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
-    assert both.any()
+    assert both > 0
     if any_hit:
-        assert (k[0].cpu().numpy()[both] == 0.0).all()
+        assert (k[0][k[1] >= 0] == 0.0).all()
 
 
 def test_march_kernel_matches_plain(cuda):
@@ -113,6 +125,185 @@ def test_march_kernel_matches_plain(cuda):
                             torch.clamp(tmax, max=0.99 * TTS.FLT_MAX))
     hit_eq, t_eq, _ = _agree(k, p)
     assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
+
+
+def _instanced(cuda, n_inst=40, seed=3):
+    """Two random meshes under rotated, non-uniformly scaled instances, one
+    pair of them coincident (equal t on every ray that hits them)."""
+    rng = np.random.default_rng(seed)
+    meshes = [random_scene(rng, 200, spread=1.0),
+              random_scene(rng, 90, spread=1.0)]
+    inst = []
+    for i in range(n_inst):
+        a = rng.uniform(0, 6.28)
+        c, s_ = np.cos(a), np.sin(a)
+        sx, sy, sz = rng.uniform(0.5, 3.0, 3)
+        m = np.array([[c * sx, 0, s_ * sz, rng.uniform(-8, 8)],
+                      [0, sy, 0, rng.uniform(-8, 8)],
+                      [-s_ * sx, 0, c * sz, rng.uniform(-8, 8)],
+                      [0, 0, 0, 1]], np.float32)
+        inst.append(dict(geom_id=i % 2, m0=m))
+    inst.append(dict(inst[0]))
+    pk = TTT.pack_stream_tlas(meshes, inst)
+    return pk, TTT.tlas_pack(pk).to(cuda)
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_tlas_kernel_matches_plain(cuda, any_hit):
+    pk, pack = _instanced(cuda)
+    rng = np.random.default_rng(11)
+    n = 8192
+    pos, d = random_rays(rng, n, box=10.0)
+    # a quarter of the rays start exactly on faces of instance boxes
+    leaf = pk['tlas_i'][:, 1] >= 0
+    boxes = pk['tlas_f'][leaf]
+    k = rng.integers(0, len(boxes), n // 4)
+    pos[:n // 4, 0] = boxes[k, 0]
+    pos, d = torch.from_numpy(pos).to(cuda), torch.from_numpy(d).to(cuda)
+    tmin = torch.zeros(n, device=cuda)
+    tmax = torch.full((n,), 6.0 if any_hit else 3.4e38, device=cuda)
+    before = TTT.intersect_stream_tlas.launches
+    k = TTT.intersect_stream_tlas(pack, pos, d, tmin, tmax, any_hit)
+    torch.cuda.synchronize()
+    assert TTT.intersect_stream_tlas.launches == before + 1
+    p = TTT.intersect_tlas_plain(pack, pos, d, tmin, torch.clamp(
+        tmax, max=0.99 * TTS.FLT_MAX), any_hit)
+    hit_eq, t_eq, both = _agree(k, p, any_hit)
+    assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
+    assert both > 100
+    if any_hit:
+        assert (k[0][k[1] >= 0] == 0.0).all()
+        assert (k[4] == -1).all()
+        return
+    same = (k[1] >= 0) & (k[1] == p[1])
+    assert same.float().mean() > 0.3
+    # same triangle, same instance, except on the coincident pair
+    inst_eq = (k[4] == p[4])[same].float().mean()
+    assert inst_eq >= 0.999, inst_eq
+    assert (k[4][k[1] < 0] == -1).all()
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_clusters_kernel_matches_plain(cuda, any_hit):
+    rng = np.random.default_rng(17)
+    v0, e1, e2 = random_scene(rng, 3000)
+    bvh = TB.build(v0, e1, e2, max_leaf=TTP.CLUSTER)
+    o = bvh.order
+    nf, ni, tris12 = (torch.from_numpy(a).to(cuda) for a in
+                      TTP.pack_cluster_bvh(bvh, v0[o], e1[o], e2[o]))
+    n = 8192
+    pos, d = random_rays(rng, n)
+    # a quarter of the rays start exactly on leaf-box faces
+    leaves = bvh.bmin[bvh.tri_count > 0]
+    pos[:n // 4, 1] = leaves[rng.integers(0, len(leaves), n // 4), 1]
+    pos, d = torch.from_numpy(pos).to(cuda), torch.from_numpy(d).to(cuda)
+    tmin = torch.zeros(n, device=cuda)
+    tmax = torch.full((n,), 3.0 if any_hit else IPT_FLT_MAX, device=cuda)
+    before = TTP.intersect_clusters.launches
+    k = TTP.intersect_clusters(nf, ni, tris12, pos, d, tmin, tmax, any_hit)
+    torch.cuda.synchronize()
+    assert TTP.intersect_clusters.launches == before + 1
+    p = TTP.intersect_clusters_plain(tris12, pos, d, tmin, tmax, any_hit)
+    hit_eq, t_eq, both = _agree(k, p, any_hit)
+    assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
+    assert both > 100
+    tri_eq = (k[1] == p[1]).float().mean()
+    assert tri_eq >= 0.999, tri_eq
+    if any_hit:
+        assert (k[0][k[1] >= 0] == 0.0).all()
+    else:
+        miss = (k[1] < 0).cpu().numpy()
+        assert (k[0].cpu().numpy()[miss] == np.float32(IPT_FLT_MAX)).all()
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_cell_pass_kernel_and_dda_match_plain(cuda, any_hit):
+    rng = np.random.default_rng(9)
+    v0, e1, e2 = random_scene(rng, 1200)
+    bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
+    o = bvh.order
+    nf, ni, woop, _ = TTS.pack_stream_bvh(bvh, v0[o], e1[o], e2[o])
+    grid = TTD.pack_grid(nf, ni, robust_aabb=False).to(cuda)
+    woop = torch.from_numpy(woop).to(cuda)
+    n = 8192
+    pos, d = random_rays(rng, n)
+    # a third of the rays start exactly on interior cell faces in x
+    m = n // 3
+    pos[:m, 0] = grid.lo[0] + rng.integers(1, max(grid.dims[0], 2), m) \
+        * grid.h[0]
+    pos, d = torch.from_numpy(pos).to(cuda), torch.from_numpy(d).to(cuda)
+    tmin = torch.zeros(n, device=cuda)
+    tmax = torch.full((n,), 3.0 if any_hit else 1e30, device=cuda)
+    # one round, every lane in the cell of its origin (clamped into the
+    # grid): the kernel against the round's plain version
+    lo = torch.tensor(grid.lo, device=cuda)
+    h = torch.tensor(grid.h, device=cuda)
+    dims = torch.tensor(grid.dims, device=cuda)
+    q = torch.minimum(torch.clamp(torch.floor((pos - lo) / h).long(), min=0),
+                      dims - 1)
+    cell = (q[:, 0] * grid.dims[1] + q[:, 1]) * grid.dims[2] + q[:, 2]
+    cell[::7] = TTD.BIG_I                                  # idle lanes
+    best = (tmax.clone(), torch.full((n,), -1, dtype=torch.int32, device=cuda),
+            torch.zeros(n, device=cuda), torch.zeros(n, device=cuda))
+    want, want_pr = TTD.cell_pass_plain(
+        grid, woop, pos, d, tmin, cell,
+        (best[0], best[1].long(), best[2], best[3]), any_hit)
+    before = TTD.cell_pass.launches
+    pr = TTD.cell_pass(grid, woop, TTS.pack_rays(pos, d, tmin, tmax),
+                       cell.to(torch.int32), best, any_hit)
+    torch.cuda.synchronize()
+    assert TTD.cell_pass.launches == before + 1
+    assert torch.equal(pr, want_pr) and not pr[::7].any()
+    hit_eq, t_eq, both = _agree(
+        (best[0], best[1].long(), best[2], best[3]), want, any_hit)
+    assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
+    assert both > 20
+    assert (best[1][::7] == -1).all()
+    # the whole round loop against the dense plain version
+    stats = {}
+    k = TTD.intersect_dda(grid, woop, pos, d, tmin, tmax, any_hit,
+                          stats=stats)
+    assert stats['live'] == 0 and stats['rounds'] >= 2
+    assert TTD.cell_pass.launches == before + 1 + stats['rounds']
+    p = TTS.intersect_plain(woop, pos, d, tmin, tmax, any_hit)
+    hit_eq, t_eq, both = _agree(k, p, any_hit)
+    assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
+    assert both > 100
+
+
+@pytest.mark.parametrize('route', ['stream_tlas', 'clusters'])
+def test_route_on_card_matches_cpu(cuda, route):
+    """One trace pass of a small scene of the route's class on the card
+    (through the route's kernel) against the same pass on the CPU (plain
+    versions)."""
+    from hydracore3_torch.models import integrator_pt as IPT
+    from hydracore3_torch.ops import rng as RNG
+    from hydracore3_torch.scene import synth
+    out = []
+    for dev in ('cpu', cuda):
+        if route == 'stream_tlas':
+            scene, meta = synth.instanced_city_scene(
+                n_blocks=3, subdiv=1, seed=5, width=48, height=32, depth=3,
+                ground_subdiv=6, device=dev)
+            wrapper = TTT.intersect_stream_tlas
+            assert meta.use_stream_tlas
+        else:
+            scene, meta = synth.city_scene(
+                n_blocks=8, subdiv=2, seed=3, width=32, height=16, depth=2,
+                ground_subdiv=32, textured=True, device=dev)
+            wrapper = TTP.intersect_clusters
+            assert meta.use_pallas
+        pix = torch.arange(meta.width * meta.height, device=dev)
+        before = wrapper.launches
+        acc, fl, _ = IPT.trace_pass(scene, meta, RNG.gen_init(pix), pix)
+        if dev is cuda:
+            assert wrapper.launches == before + 2 * meta.trace_depth
+        out.append((acc.cpu().numpy(), fl.cpu().numpy()))
+    (a_cpu, f_cpu), (a_gpu, f_gpu) = out
+    assert np.isfinite(a_gpu).all()
+    close = np.isclose(a_gpu, a_cpu, rtol=1e-3, atol=1e-3).all(axis=1)
+    assert close.mean() >= 0.995
+    assert (f_gpu == f_cpu).mean() >= 0.99
 
 
 def test_slice_on_card_matches_cpu(cuda):
@@ -188,6 +379,28 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         TTS.intersect_stream(nf.cpu(), ni, woop, pos, d, tmin, tmax)
     with pytest.raises(ValueError):
         TTD.intersect_march(grid, woop.double(), pos, d, tmin, tmax)
+    # the later ray-query wrappers: tables on the wrong device or dtype
+    _, pack = _instanced(cuda, n_inst=4)
+    with pytest.raises(ValueError):
+        TTT.intersect_stream_tlas(
+            dataclasses.replace(pack, inst_f=pack.inst_f.cpu()), pos, d,
+            tmin, tmax)
+    with pytest.raises(ValueError):
+        TTT.intersect_stream_tlas(
+            dataclasses.replace(pack, tlas_i=pack.tlas_i.long()), pos, d,
+            tmin, tmax)
+    tris12 = torch.zeros(4, 12, device=cuda)
+    with pytest.raises(ValueError):
+        TTP.intersect_clusters(nf, ni, tris12.double(), pos, d, tmin, tmax)
+    with pytest.raises(ValueError):
+        TTP.intersect_clusters(nf, ni.cpu(), tris12, pos, d, tmin, tmax)
+    with pytest.raises(ValueError, match='outlier'):
+        TTD.intersect_dda(dataclasses.replace(grid, n_outliers=1), woop, pos,
+                          d, tmin, tmax)
+    flat = TTD.pack_grid(nf.cpu().numpy(), ni.cpu().numpy(),
+                         robust_aabb=False)
+    with pytest.raises(ValueError):
+        TTD.intersect_dda(flat.to(cuda), woop.cpu(), pos, d, tmin, tmax)
     # a CUDA scene launches K1 or raises: never the plain version
     pk, xy, su, depth = _box_on(cuda, 32, 16, 2)
     n = TMK.sample_pass.launches, TMK.regen_pass.launches

@@ -81,7 +81,7 @@ def jax_city(tmp_path_factory):
 @pytest.fixture(scope='module')
 def both(tmp_path_factory):
     jscene, jmeta = jax_city(tmp_path_factory)
-    tscene, tmeta = tsynth.city_scene(**CITY_KW)
+    tscene, tmeta = tsynth.city_scene(**CITY_KW, device='cpu')
     return (scene_arrays_from_jax(jscene, jmeta), jmeta,
             tscene.to_numpy(), tmeta)
 
@@ -146,6 +146,25 @@ def test_scene_on_device_follows_argument():
             assert v.device.type == 'cpu', f.name
 
 
+@pytest.mark.parametrize('entry', ['city_scene', 'instanced_city_scene',
+                                   'box_scene', 'build_scene'])
+def test_scene_goes_to_the_card_unless_asked(entry, monkeypatch):
+    """With no ``device`` the build is for the card: where there is none it
+    raises and does not fall to the CPU's plain path."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    small = dict(width=8, height=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == 'build_scene':
+            tsynth.B.build_scene(tsynth.build_box(**small))
+        elif entry == 'box_scene':
+            tsynth.box_scene(**small)
+        elif entry == 'city_scene':
+            tsynth.city_scene(**dict(CITY_KW, **small))
+        else:
+            tsynth.instanced_city_scene(n_blocks=2, subdiv=1,
+                                        ground_subdiv=2, **small)
+
+
 # ---- the box of tests/test_api.py (small-scene branch) ----------------------
 
 @pytest.fixture(scope='module', params=[False, True], ids=['plain', 'textured'])
@@ -155,7 +174,7 @@ def boxes(request, tmp_path_factory):
     lights."""
     kw = dict(width=32, height=24, depth=3, textured=request.param)
     jscene, jmeta = jax_box.box_scene(tmp_path_factory.mktemp('box'), **kw)
-    tscene, tmeta = tsynth.box_scene(**kw)
+    tscene, tmeta = tsynth.box_scene(**kw, device='cpu')
     return jscene, jmeta, tscene, tmeta
 
 

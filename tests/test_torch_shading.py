@@ -169,7 +169,8 @@ def test_gltf_sample_and_eval():
 
 @pytest.fixture(scope='module')
 def city(tmp_path_factory):
-    return jax_city(tmp_path_factory), tsynth.city_scene(**CITY_KW)
+    return (jax_city(tmp_path_factory),
+            tsynth.city_scene(**CITY_KW, device='cpu'))
 
 
 def test_material_dispatch(city):

@@ -31,7 +31,7 @@ from test_torch_scene import CITY_KW, jax_city
 def scenes(tmp_path_factory):
     jscene, jmeta = jax_city(tmp_path_factory)
     jmeta_brute = dataclasses.replace(jmeta, use_stream=False, use_bvh=False)
-    return (jscene, jmeta_brute), tsynth.city_scene(**CITY_KW)
+    return (jscene, jmeta_brute), tsynth.city_scene(**CITY_KW, device='cpu')
 
 
 def test_trace_pass_matches_jax(scenes):
@@ -66,7 +66,7 @@ def test_trace_pass_matches_jax(scenes):
 def test_sort_order_is_inverted():
     """The per-bounce sort permutes rows; the pass must return them to
     pixel order (a wrong inverse still looks like a valid image)."""
-    scene, meta = tsynth.city_scene(**CITY_KW)
+    scene, meta = tsynth.city_scene(**CITY_KW, device='cpu')
     N = meta.width * meta.height
     pix = torch.arange(N)
     rng = TRNG.gen_init(pix)
@@ -99,4 +99,4 @@ def test_unported_options_raise(scenes):
     with pytest.raises(NotImplementedError):
         TRENDER.render(tscene, tmeta, spp=1, layer='direct')
     with pytest.raises(NotImplementedError):
-        tsynth.city_scene(**dict(CITY_KW, textured=False))
+        tsynth.city_scene(**dict(CITY_KW, textured=False), device='cpu')

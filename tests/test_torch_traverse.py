@@ -1,13 +1,17 @@
 """The plain intersector of the port against the JAX traversal functions.
 
-``intersect_plain`` (the plain torch version of both CUDA kernels) is held
-against JAX's ``intersect_brute``, ``intersect_stream`` and
+``intersect_plain`` (the plain torch version of the Woop-row CUDA kernels)
+is held against JAX's ``intersect_brute``, ``intersect_stream`` and
 ``intersect_march`` (Pallas interpret mode, at the sizes of
 tests/test_dda_traverse.py), nearest and any-hit, on random soups as that
 file builds them and on the small city's soup.  Hit masks must be equal,
 t within rtol 2e-4 / atol 1e-5, tri equal on >= 99.9% of hits (the rest
 are equal-t ties at shared edges).  The packers must give the JAX tables.
+``intersect_dda`` (the round loop over the cell pass, on CPU tensors the
+plain version of each round) is held against JAX's ``intersect_dda`` and
+against ``intersect_plain`` at the same bars.
 """
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -190,7 +194,7 @@ def test_plain_on_city_soup():
     soup): plain vs the JAX stream kernel and brute oracle."""
     from hydracore3_torch.scene import synth
     from test_torch_scene import CITY_KW
-    scene, _ = synth.city_scene(**CITY_KW)
+    scene, _ = synth.city_scene(**CITY_KW, device='cpu')
     woop = scene.st_woop
     rng = np.random.default_rng(0)
     n = 1024
@@ -305,3 +309,123 @@ def test_shadow_sort_is_inverted():
                                        torch.zeros(n), rays.t_max, True)
     torch.testing.assert_close(occ, tri >= 0, rtol=0, atol=0)
     assert occ.any() and not occ.all()
+
+
+# ---- the cell-pass wavefront (intersect_dda) --------------------------------
+
+def dda_scene(name):
+    """tests/test_dda_traverse.py's scenes: (soup, rays, t_max, any_hit)."""
+    if name == 'staggered':
+        # triangles in a thin slab at x in [3, 4]; half the rays march
+        # across the grid toward it, half leave the grid at once
+        rng = np.random.default_rng(77)
+        v0, e1, e2 = random_scene(rng, 500, spread=0.4)
+        v0[:, 0] += 3.5
+        n = 1024
+        pos = rng.uniform(-4, -3, (n, 3)).astype(np.float32)
+        pos[:, 1] = rng.uniform(-1, 1, n)
+        pos[:, 2] = rng.uniform(-1, 1, n)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d[::2, 0] = np.abs(d[::2, 0]) + 2.0
+        d[1::2, 0] = -np.abs(d[1::2, 0]) - 2.0
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return (v0, e1, e2), (pos, d), 1e30, False
+    seed, n_tris, n_rays, t_max, any_hit = {
+        'small': (23 + 300, 300, 1024, 1e30, False),
+        'large': (23 + 2000, 2000, 1500, 1e30, False),
+        'any_hit': (5, 800, 1024, 3.0, True)}[name]
+    rng = np.random.default_rng(seed)
+    soup = random_scene(rng, n_tris)
+    return soup, random_rays(rng, n_rays), t_max, any_hit
+
+
+@pytest.mark.parametrize('name', ['small', 'large', 'any_hit', 'staggered'])
+def test_dda_vs_jax_dda_and_plain(name):
+    (v0, e1, e2), (pos, d), t_max, any_hit = dda_scene(name)
+    n = len(pos)
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, t_max, np.float32)
+    bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
+    o = bvh.order
+    nf, ni, woop, _ = TTS.pack_stream_bvh(bvh, v0[o], e1[o], e2[o])
+    grid = TTD.pack_grid(nf, ni, robust_aabb=False)
+    jnf, jni, jtris, _, _ = jax_pack(v0, e1, e2)
+    jgrid = JTD.pack_grid(jnf, jni, robust_aabb=False)
+    assert grid.n_outliers == jgrid.n_outliers == 0
+    assert grid.dims == jgrid.dims
+    for k in ('cell_tab', 'cell_cl', 'cl_aabb'):
+        np.testing.assert_array_equal(getattr(grid, k),
+                                      np.asarray(getattr(jgrid, k)), err_msg=k)
+
+    jt, jtri, _, _ = (np.asarray(x) for x in JTD.intersect_dda(
+        jgrid, jnp.asarray(jtris), jnp.asarray(pos), jnp.asarray(d),
+        jnp.asarray(tmin), jnp.asarray(tmax), any_hit=any_hit,
+        interpret=True))
+    stats = {}
+    before = TTD.cell_pass.launches
+    t, tri, u, v = (x.numpy() for x in TTD.intersect_dda(
+        grid.to('cpu'), torch.from_numpy(woop), torch.from_numpy(pos),
+        torch.from_numpy(d), torch.from_numpy(tmin), torch.from_numpy(tmax),
+        any_hit=any_hit, stats=stats))
+    assert TTD.cell_pass.launches == before       # CPU tensors: no launch
+    assert stats['live'] == 0 and 1 <= stats['rounds'] <= 48
+    pt, ptri, pu, pv = plain(woop, pos, d, tmin, tmax, any_hit)
+    if any_hit:
+        np.testing.assert_array_equal(tri >= 0, jtri >= 0)
+        np.testing.assert_array_equal(tri >= 0, ptri >= 0)
+        np.testing.assert_array_equal(t, pt)
+        assert (tri >= 0).any() and not (tri >= 0).all()
+    else:
+        assert_same_hits(t, tri, jt, jtri)
+        assert_same_hits(t, tri, pt, ptri)
+        same = (tri >= 0) & (tri == ptri)
+        np.testing.assert_array_equal(u[same], pu[same])
+        np.testing.assert_array_equal(v[same], pv[same])
+        assert (tri >= 0).sum() > 20
+
+
+def test_dda_refuses_a_grid_with_outliers_and_stops_at_max_rounds():
+    (v0, e1, e2), (pos, d), _, _ = dda_scene('large')
+    n = len(pos)
+    args = [torch.from_numpy(a) for a in (pos, d, np.zeros(n, np.float32),
+                                          np.full(n, 1e30, np.float32))]
+    bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
+    o = bvh.order
+    nf, ni, woop, _ = TTS.pack_stream_bvh(bvh, v0[o], e1[o], e2[o])
+    grid = TTD.pack_grid(nf, ni, robust_aabb=False).to('cpu')
+    with pytest.raises(ValueError, match='outlier'):
+        TTD.intersect_dda(dataclasses.replace(grid, n_outliers=1),
+                          torch.from_numpy(woop), *args)
+    # two rounds cannot cross the grid: the lanes left live are counted
+    stats = {}
+    TTD.intersect_dda(grid, torch.from_numpy(woop), *args, max_rounds=2,
+                      stats=stats)
+    assert stats['rounds'] == 2 and stats['live'] > 0
+
+
+def test_dda_keeps_hits_at_the_grid_boundary():
+    """Shadow rays leaving the ground downward hit it a hair in front of
+    their origin, at the grid's lower face: a round loop that re-locates the
+    cell from a point stepped past its current t is already outside the
+    grid there and drops the hit."""
+    from hydracore3_torch.scene import synth
+    from test_torch_scene import CITY_KW
+    scene, _ = synth.city_scene(**CITY_KW, device='cpu')
+    grid = TTD.pack_grid(scene.st_nodes_f.numpy(), scene.st_nodes_i.numpy(),
+                         robust_aabb=False).to('cpu')
+    rng = np.random.default_rng(21)
+    n = 512
+    pos = np.stack([rng.uniform(-20, 20, n), np.full(n, 1.1e-4),
+                    rng.uniform(-20, 20, n)], 1).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 1] = -np.abs(d[:, 1]) - 0.2
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    args = [torch.from_numpy(a) for a in (pos, d, np.zeros(n, np.float32),
+                                          np.full(n, 999.5, np.float32))]
+    for any_hit in (True, False):
+        t, tri, _, _ = TTD.intersect_dda(grid, scene.st_woop, *args,
+                                         any_hit=any_hit)
+        pt, ptri, _, _ = TTS.intersect_plain(scene.st_woop, *args, any_hit)
+        torch.testing.assert_close(tri >= 0, ptri >= 0, rtol=0, atol=0)
+        torch.testing.assert_close(t, pt, rtol=2e-4, atol=1e-5)
+        assert (tri >= 0).float().mean() > 0.9
