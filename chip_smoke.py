@@ -27,17 +27,24 @@ Phases (any failure raises and the exit code is not 0):
      against its plain version on the camera rays' nearest hit, bounce 0's
      shadow any-hit and the Morton-sorted first-bounce rays' nearest hit,
      all 1,048,576 lanes each (hit flags and instance ids, t where the
-     triangle is the same, equal-t pairs counted); ``render.render`` at 16
+     triangle is the same, equal-t pairs counted), each query with its
+     time, its counted child-box tests, triangle tests and instance entries
+     per ray and the bound they set; ``render.render`` at 16
      spp; the same city flattened (``accel='stream'``, K2/K3) at 16 spp with
      the same seeds: PSNR >= 35 dB, means within 2%, the share of pixels
-     equal to 1e-3, the device memory of both builds; and the 48-block
+     equal to 1e-3, the device memory of both builds (the contract tables
+     and the kernel's wide tables apart); and the 48-block
      instanced city built under ``accel='auto'`` (must go two-level);
   7. the mid-size city (``scene.synth.city_scene(n_blocks=40, width=1024,
      height=1024, depth=5, textured=True)``, 152,194 triangles, routed to
      the cluster kernel K5 by ``'auto'``): the kernel against its plain
-     version on the same three queries (unsorted), ``render.render`` at 16
-     spp, and the same scene streamed at 16 spp: PSNR >= 35 dB, means within
-     2%;
+     version on the same three queries (unsorted), each with its time,
+     counts per ray and bound; under any-hit the kernel reports the first
+     occluder its walk meets and the plain version the lowest, so the
+     reported triangle is tested against its lane's ray with the plain
+     Moller-Trumbore arithmetic and must be valid on every occluded lane;
+     ``render.render`` at 16 spp, and the same scene streamed at 16 spp:
+     PSNR >= 35 dB, means within 2%;
   8. the cell-pass wavefront (K6): ``intersect_dda`` on the bench city's
      camera rays (nearest, against phase 3's plain result) and on bounce 0's
      shadow rays (any-hit), over a grid without outliers: rounds, lanes left
@@ -49,12 +56,13 @@ once, each table once) over 3.35 TB/s and its operations over 67 TFLOP/s
 counted by a second build of csrc/traverse.cu (``-DHC3_COUNT``, loaded by
 this script alone) run on the very query that is timed: what this kernel's
 own walk did, not the least a query needs
-(box tests x 25, Woop tests x 45 or Moller-Trumbore tests x 52, instance
+(child-box tests x 25, Woop tests x 45 or Moller-Trumbore tests x 52, instance
 entries x 36, grid cells x 20 operations), K1's as the first bounce's two
 brute traces of every lane (a floor: lanes that live on do more).  No
 single PyTorch call computes a ray query or a path-traced sample, so
-``library_ms`` is null throughout.  The kernel sources (csrc/traverse.cu,
-its counting build, csrc/megakernel.cu) build in parallel in phase 1;
+``library_ms`` is null throughout.  The kernel sources (csrc/traverse.cu
+with csrc/traverse_wide.cuh, which holds K4 and K5, its counting build, and
+csrc/megakernel.cu) build in parallel in phase 1;
 nothing of an earlier phase was cut.  The line before the last is a JSON record of the kernels;
 the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
 network.
@@ -159,7 +167,7 @@ def ray_query_bound(counts, n_rays, out_words, tables, tri_ops=WOOP_OPS):
     slab, tri, inst, cell = counts
     ops = (slab * SLAB_OPS + tri * tri_ops + inst * XFORM_OPS
            + cell * CELL_OPS)
-    moved = n_rays * (32 + 4 * out_words) + nbytes(*tables)
+    moved = round(n_rays * (32 + 4 * out_words)) + nbytes(*tables)
     ms, by = bound(moved, ops)
     return ms, by, dict(box_tests=slab, tri_tests=tri, instances=inst,
                         cells=cell, bytes=moved, operations=ops)
@@ -547,6 +555,19 @@ def main():
             raise RuntimeError(f'{label}: PSNR {p_:.2f} dB, mean '
                                f'{100 * m_:.3f}% off')
 
+    def query_counts(name, label, run, tables, tri_ops):
+        """One counted launch of a query: its tests per ray and the bound
+        they set; ``tables`` are what the kernel reads, and the outputs
+        count at the size the kernel writes them (int64 indices)."""
+        with counted(TST, count_lib) as c:
+            out = run()
+        b = ray_query_bound(c, N, nbytes(*out) / (4 * N), tables,
+                            tri_ops=tri_ops)
+        log(f'  {name} {label}: per ray {c[0] / N:.2f} child-box tests, '
+            f'{c[1] / N:.2f} triangle tests, {c[2] / N:.3f} instance '
+            f'entries; bound {b[0]:.4f} ms by {b[1]} {b[2]}')
+        return b
+
     # ---- 6. the instanced city through the two-level kernel (K4) ---------
     ICITY = dict(n_blocks=32, subdiv=3, ground_subdiv=32, width=1024,
                  height=1024, depth=5)
@@ -560,12 +581,17 @@ def main():
     tl_build_s = time.perf_counter() - t0
     tl_mem = torch.cuda.memory_allocated() - mem0
     pack = tl_scene.tt
+    wide6 = tuple(pack.wide.tensors().values())
     log(f'[6] instanced city: {tl_meta.num_tris} soup triangles as '
         f'{pack.inst_f.shape[0]} instances of {pack.mesh_clusters.shape[0]} '
         f'meshes, {pack.woop.shape[0] // TST.TBK} clusters, '
         f'{pack.tlas_f.shape[0]} TLAS nodes, {pack.nodes_f.shape[0]} mesh '
-        f'nodes; built in {tl_build_s:.2f} s, {tl_mem / 2**20:.2f} MiB on '
-        f'the card')
+        f'nodes; the kernel\'s tables: {pack.wide.nodes.shape[0]} wide nodes, '
+        f'{pack.wide.rows.shape[0]} triangle rows, stack {pack.wide.stack}; '
+        f'built in {tl_build_s:.2f} s, {tl_mem / 2**20:.2f} MiB on the card '
+        f'(contract tables '
+        f'{nbytes(*(getattr(pack, k) for k in TT._TABLES)) / 2**20:.2f} MiB, '
+        f'the kernel\'s {nbytes(*wide6) / 2**20:.2f} MiB)')
     if not tl_meta.use_stream_tlas:
         raise RuntimeError('the instanced city was not built two-level')
     tlas = lambda *q, **kw: TT.intersect_stream_tlas(  # noqa: E731
@@ -591,16 +617,12 @@ def main():
         if inst_eq < AGREE_MIN:
             raise RuntimeError(f'K4 {label}: instance ids equal on '
                                f'{inst_eq:.6f} < {AGREE_MIN}')
+        b6 = query_counts('intersect_tlas', label,
+                          lambda: tlas(*q, any_hit=any_hit), wide6,
+                          WOOP_OPS)
         if label == 'camera nearest':
             ms['intersect_tlas'], plain_ms['intersect_tlas'] = k_ms, p_ms
-            with counted(TST, count_lib) as c:
-                tlas(*q)
-            bounds['intersect_tlas'] = ray_query_bound(
-                c, N, 5, (pack.tlas_f, pack.tlas_i, pack.nodes_f,
-                          pack.nodes_i, pack.inst_f, pack.inst_i, pack.woop))
-            log(f'  intersect_tlas: bound {bounds["intersect_tlas"][0]:.4f} '
-                f'ms by {bounds["intersect_tlas"][1]} '
-                f'{bounds["intersect_tlas"][2]}')
+            bounds['intersect_tlas'] = b6
     log(f'  shadow: {traced6} traced rays')
     del plain6, k6, cam6, shadow6, bounce6
     tl_img, launches['intersect_tlas'], _ = render_checked(
@@ -633,15 +655,22 @@ def main():
     t0 = time.perf_counter()
     cl_scene, cl_meta = synth.city_scene(**MID, device=dev)
     torch.cuda.synchronize()
+    wide7 = tuple(cl_scene.cl_wide.tensors().values())
     log(f'[7] mid-size city: {cl_meta.num_tris} triangles, '
         f'{cl_scene.cl_nodes_f.shape[0]} nodes, use_pallas '
-        f'{cl_meta.use_pallas}, built in {time.perf_counter() - t0:.2f} s')
+        f'{cl_meta.use_pallas}; the kernel\'s tables: '
+        f'{cl_scene.cl_wide.nodes.shape[0]} wide nodes, stack '
+        f'{cl_scene.cl_wide.stack}, {nbytes(*wide7) / 2**20:.2f} MiB on the '
+        f'card beside the contract\'s triangle rows, '
+        f'{nbytes(cl_scene.cl_tris12) / 2**20:.2f} MiB (its node tables, '
+        f'{nbytes(cl_scene.cl_nodes_f, cl_scene.cl_nodes_i) / 2**20:.2f} '
+        f'MiB, stay on the host); built in {time.perf_counter() - t0:.2f} s')
     if not cl_meta.use_pallas or cl_meta.num_tris != 152_194:
         raise RuntimeError('the 40-block city must route to the cluster '
                            'kernel with 152194 triangles')
     clusters = lambda *q, **kw: TPL.intersect_clusters(  # noqa: E731
         cl_scene.cl_nodes_f, cl_scene.cl_nodes_i, cl_scene.cl_tris12, *q,
-        **kw)
+        wide=cl_scene.cl_wide, **kw)
     cam7, shadow7, bounce7, traced7 = first_bounce_queries(cl_scene, cl_meta)
     errs['intersect_clusters'] = 0.0
     for label, q, any_hit in (('camera nearest', cam7, False),
@@ -652,20 +681,27 @@ def main():
         k7 = clusters(*q, any_hit=any_hit)
         errs['intersect_clusters'] = max(errs['intersect_clusters'], compare(
             f'K5 intersect_clusters {label}', k7, plain7, any_hit))
+        if any_hit:
+            # the kernel reports the first occluder its walk meets, the
+            # plain version the lowest: hold the reported one to its lane
+            occ = k7[1] >= 0
+            valid = TPL.occluder_valid(cl_scene.cl_tris12, k7[1], *q)
+            log(f'  {label}: the reported triangle occludes its lane on '
+                f'{int((valid & occ).sum())} of {int(occ.sum())} occluded '
+                f'lanes; the same triangle as the plain version on '
+                f'{float((k7[1] == plain7[1])[occ].float().mean()):.6f}')
+            if not bool((valid == occ).all()):
+                raise RuntimeError('K5 any-hit reported a triangle that '
+                                   'does not occlude its lane')
         k_ms = cuda_ms(lambda: clusters(*q, any_hit=any_hit), 10)
         log(f'  {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms')
+        b7 = query_counts('intersect_clusters', label,
+                          lambda: clusters(*q, any_hit=any_hit), wide7,
+                          MT_OPS)
         if label == 'camera nearest':
             ms['intersect_clusters'] = k_ms
             plain_ms['intersect_clusters'] = p_ms
-            with counted(TST, count_lib) as c:
-                clusters(*q)
-            bounds['intersect_clusters'] = ray_query_bound(
-                c, N, 4, (cl_scene.cl_nodes_f, cl_scene.cl_nodes_i,
-                          cl_scene.cl_tris12), tri_ops=MT_OPS)
-            log(f'  intersect_clusters: bound '
-                f'{bounds["intersect_clusters"][0]:.4f} ms by '
-                f'{bounds["intersect_clusters"][1]} '
-                f'{bounds["intersect_clusters"][2]}')
+            bounds['intersect_clusters'] = b7
     log(f'  shadow: {traced7} traced rays')
     del plain7, k7, cam7, shadow7, bounce7
     cl_img, launches['intersect_clusters'], _ = render_checked(
@@ -731,8 +767,8 @@ def main():
            'intersect_march': csrc + 'traverse.cu',
            'mega_sample': csrc + 'megakernel.cu',
            'mega_regen': csrc + 'megakernel.cu',
-           'intersect_tlas': csrc + 'traverse.cu',
-           'intersect_clusters': csrc + 'traverse.cu',
+           'intersect_tlas': csrc + 'traverse_wide.cuh',
+           'intersect_clusters': csrc + 'traverse_wide.cuh',
            'cell_pass': csrc + 'traverse.cu'}
     replaces = {'intersect_stream': 'hydracore3_tpu/accel/traverse_stream.py:59',
                 'intersect_march': 'hydracore3_tpu/accel/traverse_dda.py:563',

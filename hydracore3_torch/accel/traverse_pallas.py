@@ -8,14 +8,18 @@ triangles here: a skip-pointer BVH whose leaves are ranges
 unpadded as ``(v0, e1, e2)`` rows and tested with Moller-Trumbore.
 
 ``intersect_clusters`` launches the hand-written CUDA kernel
-(``csrc/traverse.cu``, ``intersect_clusters_kernel``) for tensors on the
-card and the plain torch version, ``intersect_clusters_plain``, for tensors
-on the CPU.
+(``csrc/traverse_wide.cuh``, ``intersect_clusters_kernel``) for tensors on
+the card and the plain torch version, ``intersect_clusters_plain``, for
+tensors on the CPU.  The kernel walks a tree of its own over the same
+triangles (``wide_bvh.pack_wide_clusters``: 4-wide nodes, leaves of at most
+4) and reports indices into the tables here.
 
 Output contract (the JAX wrapper's): ``(t, tri, u, v)`` with ``tri`` the
 unpadded leaf-order triangle index, -1 on a miss (t is then ``t_max``, which
-is NOT clamped); under any-hit ``tri >= 0`` with ``t = t_min`` marks
-occlusion.
+is NOT clamped); nearest keeps the lowest index among equal t.  Under any-hit
+occlusion is boolean: ``tri >= 0`` with ``t = t_min`` marks it, and ``tri``
+is then the index of A triangle that occludes the lane: the lowest one from
+the plain version, the first one its walk meets from the kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from . import traverse_stream as TST
+from . import wide_bvh as WB
 
 CLUSTER = 64                 # triangles per leaf at most
 VMEM_TRI_LIMIT = 175_000     # the JAX package's upper bound of this route
@@ -115,35 +120,57 @@ def intersect_clusters_plain(tris12, ray_pos, ray_dir, t_min, t_max,
     return best_t, best_i, best_u, best_v
 
 
+def occluder_valid(tris12, tri, ray_pos, ray_dir, t_min, t_max):
+    """Per lane: does triangle ``tri`` of ``tris12`` occlude the lane's ray
+    by the plain Moller-Trumbore test (non-degenerate, u >= 0, v >= 0,
+    u + v <= 1, t_min < t < t_max)?  What an any-hit query's reported
+    triangle must satisfy on every occluded lane; False where tri < 0."""
+    t, u, v, nondeg = WB.moller_trumbore(tris12[tri.clamp(min=0)], ray_pos,
+                                         ray_dir)
+    return ((tri >= 0) & nondeg & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (t > t_min) & (t < t_max))
+
+
 def intersect_clusters(nodes_f, nodes_i, tris12, ray_pos, ray_dir, t_min,
-                       t_max, any_hit: bool = False):
+                       t_max, any_hit: bool = False, wide=None):
     """Nearest-hit / any-hit over the cluster BVH.  Returns (t, tri, u, v);
-    tri is int64."""
+    tri is int64.  The first three arguments are the JAX wrapper's, the
+    contract tables; of them only ``tris12`` is read, by the plain version.
+    A query on the card reads ``wide`` alone, the ``wide_bvh.WidePack``
+    derived from ``tris12`` (``wide_bvh.pack_wide_clusters``), so there the
+    contract tables may stay on the host (or be None)."""
     dev = ray_pos.device
     if dev.type == 'cpu':
         return intersect_clusters_plain(tris12, ray_pos, ray_dir, t_min,
                                         t_max, any_hit)
     if dev.type != 'cuda':
         raise ValueError(f'intersect_clusters: unsupported device {dev}')
+    if wide is None:
+        raise ValueError('intersect_clusters: a query on the card needs '
+                         'wide=wide_bvh.pack_wide_clusters(tris12)')
+    WB.require_stack('intersect_clusters', wide.stack)
     lib = TST.kernel_library()
     TST.check_cuda_inputs('intersect_clusters', dict(
-        nodes_f=(nodes_f, torch.float32), nodes_i=(nodes_i, torch.int32),
-        tris12=(tris12, torch.float32)), dev)
+        wide_nodes=(wide.nodes, torch.float32),
+        wide_rows=(wide.rows, torch.float32),
+        wide_index=(wide.index, torch.int32)), dev)
     N = ray_pos.shape[0]
-    rays = TST.pack_rays(ray_pos, ray_dir, t_min, t_max)
+    rays = TST.ray_arrays('intersect_clusters', ray_pos, ray_dir, t_min,
+                          t_max)
     t = torch.empty(N, dtype=torch.float32, device=dev)
-    tri = torch.empty(N, dtype=torch.int32, device=dev)
+    tri = torch.empty(N, dtype=torch.int64, device=dev)
     u = torch.empty(N, dtype=torch.float32, device=dev)
     v = torch.empty(N, dtype=torch.float32, device=dev)
     if N > 0:
         rc = lib.hc3_intersect_clusters(
-            nodes_f.data_ptr(), nodes_i.data_ptr(), tris12.data_ptr(),
-            rays.data_ptr(), N, int(any_hit), t.data_ptr(), tri.data_ptr(),
-            u.data_ptr(), v.data_ptr(),
+            wide.nodes.data_ptr(), wide.rows.data_ptr(),
+            wide.index.data_ptr(), *(x.data_ptr() for x in rays),
+            float('inf'), N, int(any_hit), wide.stack, t.data_ptr(),
+            tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         TST.launch_checked('intersect_clusters', rc)
         intersect_clusters.launches += 1
-    return t, tri.to(torch.int64), u, v
+    return t, tri, u, v
 
 
 intersect_clusters.launches = 0

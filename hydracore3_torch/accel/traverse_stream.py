@@ -26,6 +26,8 @@ FLT_MAX = 3.4e38
 TBK = 64                 # triangles per cluster
 _BIG_I = 0x7FFFFFF0
 _CU_SRC = os.path.join(PKG_DIR, 'csrc', 'traverse.cu')
+# included by traverse.cu: the wide-BVH kernels of traverse_pallas / _tlas
+_CU_HEADERS = (os.path.join(PKG_DIR, 'csrc', 'traverse_wide.cuh'),)
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC']
 _lib = None
@@ -46,7 +48,8 @@ def load_library(defines=()):
     ``hc3_counts_read(ptr to 4 u64)`` copies out."""
     flags = _NVCC_FLAGS + [f'-D{d}' for d in defines]
     name = '-'.join(['traverse', *defines]).lower()
-    path, secs = build_shared_library(name, [_CU_SRC], [_nvcc()] + flags)
+    path, secs = build_shared_library(name, [_CU_SRC], [_nvcc()] + flags,
+                                      _CU_HEADERS)
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hc3_intersect_stream.restype = i
@@ -55,9 +58,9 @@ def load_library(defines=()):
     lib.hc3_intersect_march.argtypes = ([p] * 5 + [i, p, p, i] + [f] * 6
                                         + [i] * 4 + [p] * 6)
     lib.hc3_intersect_tlas.restype = i
-    lib.hc3_intersect_tlas.argtypes = [p] * 8 + [i, i] + [p] * 6
+    lib.hc3_intersect_tlas.argtypes = [p] * 9 + [f, i, i, i] + [p] * 6
     lib.hc3_intersect_clusters.restype = i
-    lib.hc3_intersect_clusters.argtypes = [p, p, p, p, i, i] + [p] * 5
+    lib.hc3_intersect_clusters.argtypes = [p] * 7 + [f, i, i, i] + [p] * 5
     lib.hc3_cell_pass.restype = i
     lib.hc3_cell_pass.argtypes = [p] * 7 + [i, i] + [p] * 6
     lib.hc3_traverse_attrs.restype = i
@@ -126,6 +129,22 @@ def pack_rays(ray_pos, ray_dir, t_min, t_max):
     """[N, 8] f32 rows (pos3, dir3, tmin, tmax) as the kernels read them."""
     return torch.cat([ray_pos, ray_dir, t_min[:, None], t_max[:, None]],
                      dim=1).to(torch.float32).contiguous()
+
+
+def ray_arrays(name, ray_pos, ray_dir, t_min, t_max):
+    """The rays as the wide-BVH kernels read them, straight from the
+    caller's tensors: contiguous f32 (pos [N, 3], dir [N, 3], t_min [N],
+    t_max [N]) on one card; no copy when they already are.  Anything else
+    is refused: the kernel reads them by raw address."""
+    n, dev = ray_pos.shape[0], ray_pos.device
+    want = dict(ray_pos=(ray_pos, (n, 3)), ray_dir=(ray_dir, (n, 3)),
+                t_min=(t_min, (n,)), t_max=(t_max, (n,)))
+    for key, (tensor, shape) in want.items():
+        if tensor.device != dev or tuple(tensor.shape) != shape:
+            raise ValueError(f'{name}: {key} must be {shape} on {dev}, got '
+                             f'{tuple(tensor.shape)} on {tensor.device}')
+    return tuple(x.to(torch.float32).contiguous()
+                 for x in (ray_pos, ray_dir, t_min, t_max))
 
 
 def launch_checked(name, rc: int):
@@ -203,12 +222,17 @@ def hits_agree(kernel, plain, any_hit: bool = False) -> dict:
     ``tri_eq`` (both-hit lanes reporting the same triangle); maxima over
     the lanes where both report the same triangle: ``max_dt`` and
     ``max_duv`` (the barycentrics; 0 under any-hit, which returns none);
-    ``both``, the count of both-hit lanes."""
+    ``both``, the count of both-hit lanes.  Under any-hit occlusion is
+    boolean and ``tri >= 0`` only marks it: most kernels report 0, the
+    cluster kernel the first occluder its walk meets (any valid one; the
+    plain version the lowest), so every both-hit lane counts as the same
+    triangle there and ``traverse_pallas.occluder_valid`` holds the
+    reported one to its lane."""
     kt, ktri, ku, kv = (x.cpu().numpy() for x in kernel[:4])
     pt, ptri, pu, pv = (x.cpu().numpy() for x in plain[:4])
     kh, ph = ktri >= 0, ptri >= 0
     both = kh & ph
-    same = both & (ktri == ptri)
+    same = both if any_hit else both & (ktri == ptri)
     n_both = int(both.sum())
     out = dict(hit_eq=float((kh == ph).mean()), t_ok=1.0, tri_eq=1.0,
                max_dt=0.0, max_duv=0.0, both=n_both)

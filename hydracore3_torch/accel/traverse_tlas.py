@@ -11,9 +11,11 @@ object-space t equals the world-space t and one running best t culls
 across instances.
 
 ``intersect_stream_tlas`` launches the hand-written CUDA kernel
-(``csrc/traverse.cu``, ``intersect_tlas_kernel``) for tensors on the card
-and the plain torch version, ``intersect_tlas_plain``, for tensors on the
-CPU.
+(``csrc/traverse_wide.cuh``, ``intersect_tlas_kernel``) for tensors on the
+card and the plain torch version, ``intersect_tlas_plain``, for tensors on
+the CPU.  The kernel walks trees of its own over the same instances and
+triangles (``TlasPack.wide``, from ``wide_bvh.pack_wide_tlas``: 4-wide
+nodes, leaves of at most 4) and reports indices into the tables here.
 
 Output contract (the JAX wrapper's): ``(t, tri, u, v, inst)`` with ``tri``
 the GLOBAL padded leaf-order triangle index (cluster slot * TBK + k), -1 on
@@ -30,7 +32,11 @@ import torch
 
 from . import build_bvh
 from . import traverse_stream as TST
+from . import wide_bvh as WB
 from .traverse_stream import TBK, FLT_MAX
+
+# the largest t_max a query walks with, as float32
+T_MAX_CAP = float(np.float32(0.99 * FLT_MAX))
 
 _TABLES = ('tlas_f', 'tlas_i', 'nodes_f', 'nodes_i', 'inst_f', 'inst_i',
            'woop', 'mesh_clusters')
@@ -48,10 +54,15 @@ class TlasPack:
     inst_i: object         # [I, 4] i32: (mesh's first node, mesh id, 0, 0)
     woop: object           # [C * TBK, 12] f32: Woop rows, all meshes
     mesh_clusters: object  # [G, 2] i32: (first cluster slot, count) per mesh
+    # what the CUDA kernel walks, derived from the tables above: wide nodes,
+    # 4-triangle leaves (wide_bvh.pack_wide_tlas)
+    wide: WB.WidePack = None
 
     def to(self, device) -> 'TlasPack':
-        return TlasPack(**{k: torch.as_tensor(getattr(self, k), device=device)
-                           for k in _TABLES})
+        return TlasPack(
+            wide=None if self.wide is None else self.wide.to(device),
+            **{k: torch.as_tensor(getattr(self, k), device=device)
+               for k in _TABLES})
 
 
 def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
@@ -66,8 +77,10 @@ def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
     (inverse-transpose matrices for normals), ``order_padded [C * TBK]``
     (padded slot -> the mesh's ORIGINAL primitive id, -1 for padding),
     ``tri_mesh [C * TBK]`` (mesh id per padded slot, -1 for padding),
-    ``node_base [G]`` and ``cluster_base [G]``."""
+    ``node_base [G]``, ``cluster_base [G]`` and ``wide``, the card-side
+    ``WidePack`` derived from the rest."""
     nodes_f_l, nodes_i_l, woop_l, order_l, mesh_l = [], [], [], [], []
+    fine_l = []
     node_base, cluster_base, mesh_bounds = [], [], []
     nbase = cbase = 0
     for g, (v0, e1, e2) in enumerate(mesh_tris):
@@ -84,6 +97,11 @@ def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
         nodes_f_l.append(nf)
         nodes_i_l.append(ni)
         woop_l.append(woop)
+        # the mesh's triangles in the order of their padded slots, for the
+        # wide BVH
+        real = np.nonzero(op >= 0)[0]
+        at = order[op[real]]
+        fine_l.append((v0[at], e1[at], e2[at], real + cbase * TBK))
         # padded slot -> original mesh-local primitive id
         op = np.where(op >= 0, order[np.maximum(op, 0)], -1)
         order_l.append(op)
@@ -126,7 +144,7 @@ def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
 
     cluster_base = np.array(cluster_base, np.int32)
     counts = np.diff(np.append(cluster_base, cbase)).astype(np.int32)
-    return dict(
+    pk = dict(
         tlas_f=tlas_f, tlas_i=tlas_i,
         nodes_f=np.concatenate(nodes_f_l), nodes_i=np.concatenate(nodes_i_l),
         inst_f=np.array(inst_f, np.float32),
@@ -137,11 +155,13 @@ def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
         order_padded=np.concatenate(order_l),
         tri_mesh=np.concatenate(mesh_l),
         node_base=np.array(node_base, np.int32), cluster_base=cluster_base)
+    pk['wide'] = WB.pack_wide_tlas(pk, fine_l, tl)
+    return pk
 
 
 def tlas_pack(pk: dict) -> TlasPack:
     """The kernel's tables out of ``pack_stream_tlas``'s dict."""
-    return TlasPack(**{k: pk[k] for k in _TABLES})
+    return TlasPack(wide=pk['wide'], **{k: pk[k] for k in _TABLES})
 
 
 def to_object_space(inst_row, ray_pos, ray_dir):
@@ -202,40 +222,48 @@ def intersect_stream_tlas(pack: TlasPack, ray_pos, ray_dir, t_min, t_max,
                           any_hit: bool = False):
     """Two-level nearest-hit / any-hit.  Returns (t, tri, u, v, inst); tri
     and inst are int64."""
-    # below the miss sentinel (the JAX wrapper's clamp)
-    t_max = torch.clamp(t_max, max=0.99 * FLT_MAX)
+    # t_max stays below the miss sentinel (the JAX wrapper's clamp): here
+    # for the plain version, inside the kernel on the card
     dev = ray_pos.device
     if dev.type == 'cpu':
-        return intersect_tlas_plain(pack, ray_pos, ray_dir, t_min, t_max,
-                                    any_hit)
+        return intersect_tlas_plain(
+            pack, ray_pos, ray_dir, t_min,
+            torch.clamp(t_max, max=T_MAX_CAP), any_hit)
     if dev.type != 'cuda':
         raise ValueError(f'intersect_stream_tlas: unsupported device {dev}')
+    w = pack.wide
+    if w is None:
+        raise ValueError('intersect_stream_tlas: a query on the card needs '
+                         'the pack\'s wide tables (tlas_pack)')
+    WB.require_stack('intersect_stream_tlas', w.stack)
     lib = TST.kernel_library()
     i32, f32 = torch.int32, torch.float32
     TST.check_cuda_inputs('intersect_stream_tlas', dict(
         tlas_f=(pack.tlas_f, f32), tlas_i=(pack.tlas_i, i32),
         nodes_f=(pack.nodes_f, f32), nodes_i=(pack.nodes_i, i32),
         inst_f=(pack.inst_f, f32), inst_i=(pack.inst_i, i32),
-        woop=(pack.woop, f32)), dev)
+        woop=(pack.woop, f32), wide_nodes=(w.nodes, f32),
+        wide_rows=(w.rows, f32), wide_index=(w.index, i32),
+        wide_inst_f=(w.inst_f, f32), wide_inst_i=(w.inst_i, i32)), dev)
     N = ray_pos.shape[0]
-    rays = TST.pack_rays(ray_pos, ray_dir, t_min, t_max)
+    rays = TST.ray_arrays('intersect_stream_tlas', ray_pos, ray_dir, t_min,
+                          t_max)
     t = torch.empty(N, dtype=f32, device=dev)
-    tri = torch.empty(N, dtype=i32, device=dev)
+    tri = torch.empty(N, dtype=torch.int64, device=dev)
     u = torch.empty(N, dtype=f32, device=dev)
     v = torch.empty(N, dtype=f32, device=dev)
-    inst = torch.empty(N, dtype=i32, device=dev)
+    inst = torch.empty(N, dtype=torch.int64, device=dev)
     if N > 0:
         rc = lib.hc3_intersect_tlas(
-            pack.tlas_f.data_ptr(), pack.tlas_i.data_ptr(),
-            pack.nodes_f.data_ptr(), pack.nodes_i.data_ptr(),
-            pack.inst_f.data_ptr(), pack.inst_i.data_ptr(),
-            pack.woop.data_ptr(), rays.data_ptr(), N, int(any_hit),
-            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-            inst.data_ptr(),
+            w.nodes.data_ptr(), w.rows.data_ptr(), w.index.data_ptr(),
+            w.inst_f.data_ptr(), w.inst_i.data_ptr(),
+            *(x.data_ptr() for x in rays), T_MAX_CAP, N, int(any_hit),
+            w.stack, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+            v.data_ptr(), inst.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         TST.launch_checked('intersect_stream_tlas', rc)
         intersect_stream_tlas.launches += 1
-    return t, tri.to(torch.int64), u, v, inst.to(torch.int64)
+    return t, tri, u, v, inst
 
 
 intersect_stream_tlas.launches = 0

@@ -1,6 +1,7 @@
 // Ray queries over the streamed cluster BVH and its uniform grid, for Hopper.
 //
-// Five kernels, one ray per thread, 128 threads per block:
+// Five kernels, one ray per thread, 128 threads per block (two of them in
+// traverse_wide.cuh):
 //
 //  * intersect_stream_kernel<ANY_HIT> replaces the Pallas kernel
 //    hydracore3_tpu/accel/traverse_stream.py:_kernel (wrapper
@@ -18,25 +19,9 @@
 //    before the current cell's exit or the ray leaves the grid.  Every lane
 //    is marched to its end; a lane still live after the iteration cap is
 //    reported unresolved (none is expected).
-//  * intersect_tlas_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
-//    traverse_tlas.py:_kernel (wrapper intersect_stream_tlas): a two-level
-//    walk.  The world-space ray walks a skip-pointer TLAS over instance
-//    boxes; at a leaf it is taken into the instance's object space by the
-//    inverse matrix WITHOUT renormalizing the direction, so object t equals
-//    world t and one best t culls across instances; the safe inverses are
-//    recomputed and the instance's mesh BVH (the same node/cluster/Woop
-//    layout as the stream kernel's, skips global, -1 ends a mesh) is walked.
-//    The transform is written with __fmul_rn/__fadd_rn in the order of the
-//    plain torch version so both feed the same object-space ray to the
-//    triangle test.  Nearest keeps (t, tri, u, v, inst); any-hit ends the
-//    whole walk at the first valid triangle (tri = 0, t = tmin, inst = -1).
-//  * intersect_clusters_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
-//    traverse_pallas.py:_kernel (wrapper intersect_clusters): the same
-//    stackless walk over a BVH whose leaves are ranges [toff, toff + tcnt)
-//    of unpadded (v0, e1, e2) rows, tested with Moller-Trumbore
-//    (pvec = d x e2, det = pvec . e1, |det| > 1e-12).  Nearest keeps the
-//    unpadded leaf-order index; any-hit keeps the first valid triangle's
-//    index with t = tmin and ends the walk.  t_max is not clamped here.
+//  * intersect_tlas_kernel<ANY_HIT> and intersect_clusters_kernel<ANY_HIT>
+//    (the two-level and the cluster-BVH query) walk wide BVHs with small
+//    leaves near-first: traverse_wide.cuh, with its own note.
 //  * cell_pass_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
 //    traverse_dda.py:_cell_kernel (one round of intersect_dda): each lane
 //    brings the id of the grid cell it stands in (BIG_I = idle) and its
@@ -54,13 +39,8 @@
 // float4/int4 rows), culls a cluster by its box before touching its
 // triangles, loops over the real triangles of a leaf only, and relies on
 // the integrator's per-bounce coherence sort to keep neighbouring lanes on
-// similar paths.  No shared memory, tiles or queues.  The three later
-// kernels are bound the same way: per ray a chain of dependent 16-byte loads
-// from tables that fit L2 (the instanced city's whole geometry is ~40
-// clusters, under 200 KB, plus 130 KB of instance rows; the mid-size city's
-// 152k triangle rows are 7.3 MB), so latency and warp divergence, not DRAM
-// bandwidth or f32 rate, set their time; the two-level walk adds one
-// 48-byte instance-matrix read and 18 multiply-adds per instance entered.
+// similar paths.  No shared memory, tiles or queues.  cell_pass_kernel is
+// bound the same way.
 //
 // Semantics follow the JAX kernels: slab test with inv = 1/d where
 // |d| > 1e-20 else 1e30, tn = max(mins, tmin), tf = min(maxs, best_t), hit
@@ -319,147 +299,9 @@ intersect_march_kernel(const int4* __restrict__ cell_tab,
 }
 
 
-// ---- two-level (TLAS over instances, per-mesh cluster BVHs) -----------------
+// ---- the cluster-BVH and two-level queries over wide BVHs -------------------
 
-// M (3x4 rows m0..m2) applied as ((a*x + b*y) + c*z) [+ w], each operation
-// rounded on its own, as the plain torch version computes it
-__device__ __forceinline__ float dot3_rn(float4 m, float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(m.x, x), __fmul_rn(m.y, y)),
-                   __fmul_rn(m.z, z));
-}
-
-template <bool ANY_HIT>
-__global__ void __launch_bounds__(BLOCK)
-intersect_tlas_kernel(const float4* __restrict__ tlas_f,
-                      const int4* __restrict__ tlas_i,
-                      const float4* __restrict__ nodes_f,
-                      const int4* __restrict__ nodes_i,
-                      const float4* __restrict__ inst_f,
-                      const int4* __restrict__ inst_i,
-                      const float4* __restrict__ woop,
-                      const float4* __restrict__ rays, int n,
-                      float* __restrict__ out_t, int* __restrict__ out_tri,
-                      float* __restrict__ out_u, float* __restrict__ out_v,
-                      int* __restrict__ out_inst) {
-  int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(rays, i);
-  Best best{r.tmax, 0.0f, 0.0f, -1};
-  HC3_COUNTS;
-  int best_inst = -1;
-  int tnode = 0;
-  bool done = false;
-  while (tnode >= 0 && !done) {
-    int4 ti = tlas_i[tnode];
-    HC3_TICK(slab);
-    bool hit = slab(r, tlas_f[2 * tnode], tlas_f[2 * tnode + 1], best.t);
-    if (hit && ti.y >= 0) {
-      int inst = ti.y;
-      HC3_TICK(inst);
-      float4 m0 = inst_f[4 * inst], m1 = inst_f[4 * inst + 1],
-             m2 = inst_f[4 * inst + 2];
-      Ray o;
-      o.ox = __fadd_rn(dot3_rn(m0, r.ox, r.oy, r.oz), m0.w);
-      o.oy = __fadd_rn(dot3_rn(m1, r.ox, r.oy, r.oz), m1.w);
-      o.oz = __fadd_rn(dot3_rn(m2, r.ox, r.oy, r.oz), m2.w);
-      o.dx = dot3_rn(m0, r.dx, r.dy, r.dz);
-      o.dy = dot3_rn(m1, r.dx, r.dy, r.dz);
-      o.dz = dot3_rn(m2, r.dx, r.dy, r.dz);
-      o.ix = safe_inv(o.dx); o.iy = safe_inv(o.dy); o.iz = safe_inv(o.dz);
-      o.tmin = r.tmin; o.tmax = r.tmax;
-      int node = inst_i[inst].x;
-      while (node >= 0) {
-        int4 ni = nodes_i[node];
-        HC3_TICK(slab);
-        bool h = slab(o, nodes_f[2 * node], nodes_f[2 * node + 1], best.t);
-        if (h && ni.y >= 0) {
-          float t_before = best.t;
-          if (cluster<ANY_HIT>(o, woop, ni.y * TBK, ni.z,
-                               best HC3_COUNTS_ARG)) {
-            done = true;
-            break;
-          }
-          if (best.t < t_before) best_inst = inst;
-        }
-        node = (h && ni.y < 0) ? node + 1 : ni.x;
-      }
-    }
-    tnode = (hit && ti.y < 0) ? tnode + 1 : ti.x;
-  }
-  out_t[i] = best.t;
-  out_tri[i] = best.tri;
-  out_u[i] = best.u;
-  out_v[i] = best.v;
-  out_inst[i] = best_inst;
-  HC3_FLUSH;
-}
-
-// ---- cluster BVH over unpadded (v0, e1, e2) rows, Moller-Trumbore ------------
-
-template <bool ANY_HIT>
-__global__ void __launch_bounds__(BLOCK)
-intersect_clusters_kernel(const float4* __restrict__ nodes_f,
-                          const int4* __restrict__ nodes_i,
-                          const float4* __restrict__ tris12,
-                          const float4* __restrict__ rays, int n,
-                          float* __restrict__ out_t, int* __restrict__ out_tri,
-                          float* __restrict__ out_u,
-                          float* __restrict__ out_v) {
-  int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(rays, i);
-  Best best{r.tmax, 0.0f, 0.0f, -1};
-  HC3_COUNTS;
-  int node = 0;
-  while (node >= 0) {
-    int4 ni = nodes_i[node];           // (skip, tri offset, tri count, pad)
-    HC3_TICK(slab);
-    bool hit = slab(r, nodes_f[2 * node], nodes_f[2 * node + 1], best.t);
-    bool found = false;
-    if (hit && ni.z > 0) {
-      for (int k = 0; k < ni.z; ++k) {
-        HC3_TICK(tri);
-        const float4* tr = tris12 + 3 * (ni.y + k);
-        float4 a = tr[0], b = tr[1], c = tr[2];
-        float v0x = a.x, v0y = a.y, v0z = a.z;
-        float e1x = a.w, e1y = b.x, e1z = b.y;
-        float e2x = b.z, e2y = b.w, e2z = c.x;
-        float pvx = r.dy * e2z - r.dz * e2y;
-        float pvy = r.dz * e2x - r.dx * e2z;
-        float pvz = r.dx * e2y - r.dy * e2x;
-        float det = pvx * e1x + pvy * e1y + pvz * e1z;
-        bool nondeg = fabsf(det) > 1e-12f;
-        float inv = nondeg ? 1.0f / det : 0.0f;
-        float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
-        float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-        float qvx = tvy * e1z - tvz * e1y;
-        float qvy = tvz * e1x - tvx * e1z;
-        float qvz = tvx * e1y - tvy * e1x;
-        float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv;
-        float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-        bool ok = nondeg && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                  (t > r.tmin) && (t < best.t);
-        if (ok) {
-          best.t = ANY_HIT ? r.tmin : t;
-          best.tri = ni.y + k;
-          best.u = u;
-          best.v = v;
-          if (ANY_HIT) {
-            found = true;
-            break;
-          }
-        }
-      }
-    }
-    if (found) break;
-    node = (hit && ni.z == 0) ? node + 1 : ni.x;
-  }
-  out_t[i] = best.t;
-  out_tri[i] = best.tri;
-  out_u[i] = best.u;
-  out_v[i] = best.v;
-  HC3_FLUSH;
-}
+#include "traverse_wide.cuh"
 
 // ---- one round of the cell-rebinned wavefront ---------------------------------
 
@@ -594,38 +436,48 @@ extern "C" int hc3_intersect_march(
   return static_cast<int>(cudaGetLastError());
 }
 
+// nodes / rows / index (/ inst_f / inst_i): accel/wide_bvh.py's WidePack,
+// whose tree needs `stack` entries of stack per ray (refused beyond
+// WIDE_STACK); the rays as the caller holds them (pos [n, 3], dir [n, 3],
+// tmin [n], tmax [n], f32), tmax capped at tmax_cap; out_tri (and out_inst)
+// are int64
 extern "C" int hc3_intersect_tlas(
-    const void* tlas_f, const void* tlas_i, const void* nodes_f,
-    const void* nodes_i, const void* inst_f, const void* inst_i,
-    const void* woop, const void* rays, int n, int any_hit, void* out_t,
-    void* out_tri, void* out_u, void* out_v, void* out_inst, void* stream) {
+    const void* nodes, const void* rows, const void* index,
+    const void* inst_f, const void* inst_i, const void* pos, const void* dir,
+    const void* tmin, const void* tmax, float tmax_cap, int n, int any_hit,
+    int stack, void* out_t, void* out_tri, void* out_u, void* out_v,
+    void* out_inst, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stack < 0 || stack > WIDE_STACK)
+    return static_cast<int>(cudaErrorInvalidValue);
   HC3_LAUNCH(intersect_tlas_kernel, any_hit,
-             static_cast<const float4*>(tlas_f),
-             static_cast<const int4*>(tlas_i),
-             static_cast<const float4*>(nodes_f),
-             static_cast<const int4*>(nodes_i),
+             static_cast<const float4*>(nodes),
+             static_cast<const float4*>(rows), static_cast<const int*>(index),
              static_cast<const float4*>(inst_f),
-             static_cast<const int4*>(inst_i),
-             static_cast<const float4*>(woop),
-             static_cast<const float4*>(rays), n, static_cast<float*>(out_t),
-             static_cast<int*>(out_tri), static_cast<float*>(out_u),
-             static_cast<float*>(out_v), static_cast<int*>(out_inst));
+             static_cast<const int4*>(inst_i), static_cast<const float*>(pos),
+             static_cast<const float*>(dir), static_cast<const float*>(tmin),
+             static_cast<const float*>(tmax), tmax_cap, n,
+             static_cast<float*>(out_t), static_cast<long long*>(out_tri),
+             static_cast<float*>(out_u), static_cast<float*>(out_v),
+             static_cast<long long*>(out_inst));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hc3_intersect_clusters(const void* nodes_f, const void* nodes_i,
-                                      const void* tris12, const void* rays,
-                                      int n, int any_hit, void* out_t,
-                                      void* out_tri, void* out_u, void* out_v,
-                                      void* stream) {
+extern "C" int hc3_intersect_clusters(
+    const void* nodes, const void* rows, const void* index, const void* pos,
+    const void* dir, const void* tmin, const void* tmax, float tmax_cap,
+    int n, int any_hit, int stack, void* out_t, void* out_tri, void* out_u,
+    void* out_v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stack < 0 || stack > WIDE_STACK)
+    return static_cast<int>(cudaErrorInvalidValue);
   HC3_LAUNCH(intersect_clusters_kernel, any_hit,
-             static_cast<const float4*>(nodes_f),
-             static_cast<const int4*>(nodes_i),
-             static_cast<const float4*>(tris12),
-             static_cast<const float4*>(rays), n, static_cast<float*>(out_t),
-             static_cast<int*>(out_tri), static_cast<float*>(out_u),
+             static_cast<const float4*>(nodes),
+             static_cast<const float4*>(rows), static_cast<const int*>(index),
+             static_cast<const float*>(pos), static_cast<const float*>(dir),
+             static_cast<const float*>(tmin), static_cast<const float*>(tmax),
+             tmax_cap, n, static_cast<float*>(out_t),
+             static_cast<long long*>(out_tri), static_cast<float*>(out_u),
              static_cast<float*>(out_v));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,333 @@
+// Ray queries over wide BVHs with small leaves: the cluster-BVH query and the
+// two-level (TLAS) query, designed for Hopper.  Included by traverse.cu, whose
+// Ray, safe_inv, Best, BLOCK and counting macros it uses.
+//
+//  * intersect_clusters_kernel<ANY_HIT> replaces the Pallas kernel
+//    hydracore3_tpu/accel/traverse_pallas.py:_kernel (wrapper
+//    intersect_clusters): nearest hit (t, tri, u, v) or any-hit over (v0, e1,
+//    e2) rows tested with Moller-Trumbore (pvec = d x e2, det = pvec . e1,
+//    |det| > 1e-12; t_max is not clamped here).  tri is the contract's
+//    unpadded leaf-order index, read from the fine order's map.
+//  * intersect_tlas_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
+//    traverse_tlas.py:_kernel (wrapper intersect_stream_tlas): the world-space
+//    ray walks a TLAS over instance boxes; at an instance it is taken into
+//    object space by the inverse matrix WITHOUT renormalizing the direction,
+//    so object t equals world t and one best t culls across instances; the
+//    transform is written with __fmul_rn/__fadd_rn in the order of the plain
+//    torch version so both feed the same object-space ray to the Woop test.
+//    tri is the contract's global padded slot.  Any-hit ends the whole walk at
+//    the first valid triangle (tri = 0, t = tmin, inst = -1).
+//
+// What bounds them on the card.  A ray query has no matrix product and its
+// loads are 16-128-byte records at data-dependent addresses, so tensor cores
+// and TMA have no work here; the tables fit L2 (7.3 MB of triangle rows for a
+// 152k-triangle city, under 1 MB for the instanced city), so it is not DRAM
+// bandwidth either.  Time goes to the latency of dependent L2 loads, to
+// tests that a better order would not have made and, once those are gone, to
+// the arithmetic of the tests that remain.  The TPU kernels test a
+// 64-triangle tile at once, and a thread walking their tables in the fixed
+// order of a stackless skip-pointer walk did 399 triangle and 88 box tests
+// per camera ray on the 152k-triangle city (two-level: 176, 65 and 4.8
+// instances entered); this walk does 4.0 and 34 (two-level: 5.3, 40 and
+// 1.45), counted by the -DHC3_COUNT build.  The design, one ray per thread:
+//  * nodes of 4 children over leaves of at most 4 triangles (accel/
+//    wide_bvh.py builds them from the contract tables).  A node is one aligned
+//    128-byte record, children's boxes as six float4 rows and one int4 of
+//    references, so a visit is one cache line and four box tests, not a chain
+//    of dependent visits;
+//  * near-first order: the hit children are sorted by entry distance, the
+//    nearest is entered, the others wait on a per-thread stack of (reference,
+//    entry distance) pairs in local memory, and a popped entry whose entry
+//    distance lies beyond the best t is dropped without a load.  The fixed
+//    order met the far child first for half the rays;
+//  * "while-while" (Aila and Laine, Understanding the Efficiency of Ray
+//    Traversal on GPUs, HPG 2009): a lane loops over inner nodes until it
+//    holds a leaf and only then tests triangles, so a warp's lanes do like
+//    work together;
+//  * visiting order no longer settles ties, a comparison does: among equal t
+//    the lower contract index wins, and in the two-level walk first the
+//    instance that the contract TLAS's DFS meets first.  Boxes are entered
+//    inclusively (tn <= min(tf, best t)) and an entry at the best t is kept,
+//    so every candidate of a tie is reached;
+//  * the kernels read the caller's ray arrays and write int64 indices, so
+//    the wrapper launches nothing else (packing the rays and widening the
+//    indices took as long as the walk itself).
+// On an H100 a query of 1,048,576 rays takes 0.09-0.17 ms (5.1 and 2.2 ms for
+// the camera rays with the walk this replaces); entering the children in
+// stored order instead of nearest first costs 5.7x and 3.8x on camera rays.
+
+constexpr int WIDE_EMPTY = static_cast<int>(0x80000000u);  // no child
+constexpr int WIDE_STACK = 64;   // entries per ray at most
+
+struct __align__(8) Entry {
+  int ref;
+  float t;
+};
+
+// A walk's stack is a per-thread array in local memory: interleaved by the
+// hardware so a warp's accesses coalesce, and served by L1.  (Kept in shared
+// memory it measured 1-10% slower on every query on an H100: 8 bytes x
+// entries x 128 threads a block cut the blocks per SM.)
+
+// The ray of lane i straight from the caller's arrays (pos [n, 3], dir
+// [n, 3], tmin [n], tmax [n]; tmax capped at tmax_cap), so the wrapper packs
+// nothing.
+__device__ __forceinline__ Ray load_ray_soa(const float* __restrict__ pos,
+                                            const float* __restrict__ dir,
+                                            const float* __restrict__ tmin,
+                                            const float* __restrict__ tmax,
+                                            float tmax_cap, int i) {
+  Ray r;
+  r.ox = pos[3 * i]; r.oy = pos[3 * i + 1]; r.oz = pos[3 * i + 2];
+  r.dx = dir[3 * i]; r.dy = dir[3 * i + 1]; r.dz = dir[3 * i + 2];
+  r.tmin = tmin[i];
+  r.tmax = fminf(tmax[i], tmax_cap);
+  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
+  return r;
+}
+
+// entry distance into one child's box, +inf on a miss (slab()'s arithmetic)
+__device__ __forceinline__ float slab_entry(const Ray& r, float lx, float ly,
+                                            float lz, float hx, float hy,
+                                            float hz, float best_t) {
+  float t0x = (lx - r.ox) * r.ix, t1x = (hx - r.ox) * r.ix;
+  float t0y = (ly - r.oy) * r.iy, t1y = (hy - r.oy) * r.iy;
+  float t0z = (lz - r.oz) * r.iz, t1z = (hz - r.oz) * r.iz;
+  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                   fmaxf(fminf(t0z, t1z), r.tmin));
+  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                   fminf(fmaxf(t0z, t1z), best_t));
+  return tn <= tf ? tn : INFINITY;
+}
+
+// compare-exchange of two (entry distance, reference) pairs; the pair moves
+// only when the later distance is strictly smaller
+#define WIDE_CE(a, b)                                                         \
+  if (t##b < t##a) {                                                          \
+    float tt = t##a; t##a = t##b; t##b = tt;                                  \
+    int cc = c##a; c##a = c##b; c##b = cc;                                    \
+  }
+
+// Walk the subtree under reference `cur` near-first.  `leaf(ref)` handles a
+// leaf reference and returns true to end the whole query.  The stack above
+// `sp` is this walk's; it returns with sp where it found it.
+template <class Leaf>
+__device__ __forceinline__ bool walk_wide(const float4* __restrict__ nodes,
+                                          const Ray& r, int cur, int& sp,
+                                          const Best& best, Leaf leaf,
+                                          Entry* wide_stack HC3_COUNTS_PARAM) {
+  const int base = sp;
+  while (true) {
+    while (cur >= 0) {
+      const float4* nd = nodes + 8 * cur;
+      float4 lx = nd[0], ly = nd[1], lz = nd[2];
+      float4 hx = nd[3], hy = nd[4], hz = nd[5];
+      int4 c = reinterpret_cast<const int4*>(nd)[6];
+      int c0 = c.x, c1 = c.y, c2 = c.z, c3 = c.w;
+      float t0 = slab_entry(r, lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, best.t);
+      float t1 = slab_entry(r, lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, best.t);
+      float t2 = slab_entry(r, lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, best.t);
+      float t3 = slab_entry(r, lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, best.t);
+      if (c0 == WIDE_EMPTY) t0 = INFINITY; else HC3_TICK(slab);
+      if (c1 == WIDE_EMPTY) t1 = INFINITY; else HC3_TICK(slab);
+      if (c2 == WIDE_EMPTY) t2 = INFINITY; else HC3_TICK(slab);
+      if (c3 == WIDE_EMPTY) t3 = INFINITY; else HC3_TICK(slab);
+      WIDE_CE(0, 1) WIDE_CE(2, 3) WIDE_CE(0, 2) WIDE_CE(1, 3) WIDE_CE(1, 2)
+      // far to near, so the nearest waiting child is popped first
+      if (t3 < INFINITY) wide_stack[sp++] = Entry{c3, t3};
+      if (t2 < INFINITY) wide_stack[sp++] = Entry{c2, t2};
+      if (t1 < INFINITY) wide_stack[sp++] = Entry{c1, t1};
+      cur = t0 < INFINITY ? c0 : WIDE_EMPTY;
+    }
+    if (cur != WIDE_EMPTY && leaf(cur)) {
+      sp = base;
+      return true;
+    }
+    cur = WIDE_EMPTY;
+    while (sp > base) {
+      Entry e = wide_stack[--sp];
+      if (e.t <= best.t) {
+        cur = e.ref;
+        break;
+      }
+    }
+    if (cur == WIDE_EMPTY) return false;
+  }
+}
+
+// ---- cluster BVH: (v0, e1, e2) rows, Moller-Trumbore ----------------------
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(BLOCK)
+intersect_clusters_kernel(const float4* __restrict__ nodes,
+                          const float4* __restrict__ rows,
+                          const int* __restrict__ index,
+                          const float* __restrict__ pos,
+                          const float* __restrict__ dir,
+                          const float* __restrict__ tmin,
+                          const float* __restrict__ tmax, float tmax_cap,
+                          int n, float* __restrict__ out_t,
+                          long long* __restrict__ out_tri,
+                          float* __restrict__ out_u,
+                          float* __restrict__ out_v) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray_soa(pos, dir, tmin, tmax, tmax_cap, i);
+  Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
+  Entry wide_stack[WIDE_STACK];
+  auto leaf = [&](int ref) -> bool {
+    int code = ~ref;
+    int off = code >> 3, count = code & 7;
+    for (int k = 0; k < count; ++k) {
+      HC3_TICK(tri);
+      const float4* tr = rows + 3 * (off + k);
+      float4 a = tr[0], b = tr[1], c = tr[2];
+      float v0x = a.x, v0y = a.y, v0z = a.z;
+      float e1x = a.w, e1y = b.x, e1z = b.y;
+      float e2x = b.z, e2y = b.w, e2z = c.x;
+      float pvx = r.dy * e2z - r.dz * e2y;
+      float pvy = r.dz * e2x - r.dx * e2z;
+      float pvz = r.dx * e2y - r.dy * e2x;
+      float det = pvx * e1x + pvy * e1y + pvz * e1z;
+      bool nondeg = fabsf(det) > 1e-12f;
+      float inv = nondeg ? 1.0f / det : 0.0f;
+      float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
+      float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+      float qvx = tvy * e1z - tvz * e1y;
+      float qvy = tvz * e1x - tvx * e1z;
+      float qvz = tvx * e1y - tvy * e1x;
+      float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv;
+      float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+      bool ok = nondeg && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+                (t > r.tmin) && (ANY_HIT ? t < best.t : t <= best.t);
+      if (ok) {
+        int tri = index[off + k];
+        if (ANY_HIT) {
+          best.t = r.tmin;
+          best.tri = tri;
+          return true;
+        }
+        // among equal t the lower contract index wins
+        if (t < best.t || (best.tri >= 0 && tri < best.tri)) {
+          best.t = t;
+          best.tri = tri;
+          best.u = u;
+          best.v = v;
+        }
+      }
+    }
+    return false;
+  };
+  int sp = 0;
+  if (r.tmax > r.tmin)
+    walk_wide(nodes, r, 0, sp, best, leaf, wide_stack HC3_COUNTS_ARG);
+  out_t[i] = best.t;
+  out_tri[i] = best.tri;
+  out_u[i] = best.u;
+  out_v[i] = best.v;
+  HC3_FLUSH;
+}
+
+// ---- two-level: a TLAS over instances, per-mesh trees, Woop rows ----------
+
+// M (3x4 rows m0..m2) applied as ((a*x + b*y) + c*z) [+ w], each operation
+// rounded on its own, as the plain torch version computes it
+__device__ __forceinline__ float dot3_rn(float4 m, float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(m.x, x), __fmul_rn(m.y, y)),
+                   __fmul_rn(m.z, z));
+}
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(BLOCK)
+intersect_tlas_kernel(const float4* __restrict__ nodes,
+                      const float4* __restrict__ rows,
+                      const int* __restrict__ index,
+                      const float4* __restrict__ inst_f,
+                      const int4* __restrict__ inst_i,
+                      const float* __restrict__ pos,
+                      const float* __restrict__ dir,
+                      const float* __restrict__ tmin,
+                      const float* __restrict__ tmax, float tmax_cap, int n,
+                      float* __restrict__ out_t,
+                      long long* __restrict__ out_tri,
+                      float* __restrict__ out_u, float* __restrict__ out_v,
+                      long long* __restrict__ out_inst) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray_soa(pos, dir, tmin, tmax, tmax_cap, i);
+  Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
+  Entry wide_stack[WIDE_STACK];
+  int best_inst = -1, best_rank = -1;
+  int sp = 0;
+  // a TLAS leaf: take the ray into the instance and walk its mesh
+  auto instance = [&](int ref) -> bool {
+    int inst = (~ref) >> 3;
+    HC3_TICK(inst);
+    float4 m0 = inst_f[4 * inst], m1 = inst_f[4 * inst + 1],
+           m2 = inst_f[4 * inst + 2];
+    int4 ii = inst_i[inst];            // (mesh root node, DFS rank, 0, 0)
+    Ray o;
+    o.ox = __fadd_rn(dot3_rn(m0, r.ox, r.oy, r.oz), m0.w);
+    o.oy = __fadd_rn(dot3_rn(m1, r.ox, r.oy, r.oz), m1.w);
+    o.oz = __fadd_rn(dot3_rn(m2, r.ox, r.oy, r.oz), m2.w);
+    o.dx = dot3_rn(m0, r.dx, r.dy, r.dz);
+    o.dy = dot3_rn(m1, r.dx, r.dy, r.dz);
+    o.dz = dot3_rn(m2, r.dx, r.dy, r.dz);
+    o.ix = safe_inv(o.dx); o.iy = safe_inv(o.dy); o.iz = safe_inv(o.dz);
+    o.tmin = r.tmin; o.tmax = r.tmax;
+    auto leaf = [&](int lref) -> bool {
+      int code = ~lref;
+      int off = code >> 3, count = code & 7;
+      for (int k = 0; k < count; ++k) {
+        HC3_TICK(tri);
+        const float4* w = rows + 3 * (off + k);
+        float4 wx = w[0], wy = w[1], wz = w[2];
+        float po_z = wz.x * o.ox + wz.y * o.oy + wz.z * o.oz + wz.w;
+        float pd_z = wz.x * o.dx + wz.y * o.dy + wz.z * o.dz;
+        float t = -po_z / pd_z;
+        float u = (wx.x * o.ox + wx.y * o.oy + wx.z * o.oz + wx.w)
+                  + t * (wx.x * o.dx + wx.y * o.dy + wx.z * o.dz);
+        float v = (wy.x * o.ox + wy.y * o.oy + wy.z * o.oz + wy.w)
+                  + t * (wy.x * o.dx + wy.y * o.dy + wy.z * o.dz);
+        bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+                  (t > r.tmin) && (ANY_HIT ? t < best.t : t <= best.t);
+        if (ok) {
+          if (ANY_HIT) {
+            best.t = r.tmin;
+            best.tri = 0;
+            return true;
+          }
+          int tri = index[off + k];
+          // among equal t the instance the contract TLAS's DFS meets first
+          // wins, then the lower contract index
+          if (t < best.t ||
+              (best.tri >= 0 &&
+               (ii.y < best_rank ||
+                (ii.y == best_rank && tri < best.tri)))) {
+            best.t = t;
+            best.u = u;
+            best.v = v;
+            best.tri = tri;
+            best_inst = inst;
+            best_rank = ii.y;
+          }
+        }
+      }
+      return false;
+    };
+    return walk_wide(nodes, o, ii.x, sp, best, leaf,
+                     wide_stack HC3_COUNTS_ARG);
+  };
+  if (r.tmax > r.tmin)
+    walk_wide(nodes, r, 0, sp, best, instance, wide_stack HC3_COUNTS_ARG);
+  out_t[i] = best.t;
+  out_tri[i] = best.tri;
+  out_u[i] = best.u;
+  out_v[i] = best.v;
+  out_inst[i] = best_inst;
+  HC3_FLUSH;
+}
+
+#undef WIDE_CE

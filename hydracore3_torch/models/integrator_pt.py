@@ -252,7 +252,8 @@ def kernel_ray_trace(scene, meta, state: RayState, bounce: int) -> RayState:
         if meta.use_pallas:
             pt, ptri, pu, pv = TPL.intersect_clusters(
                 scene.cl_nodes_f, scene.cl_nodes_i, scene.cl_tris12,
-                state.ray_pos, state.ray_dir, t_min, t_max)
+                state.ray_pos, state.ray_dir, t_min, t_max,
+                wide=scene.cl_wide)
         else:
             pt, ptri, pu, pv = nearest_hit(scene, state.ray_pos,
                                            state.ray_dir, t_min, t_max)
@@ -340,7 +341,7 @@ def shadow_occluded_in_lane_order(scene, meta, rays: ShadowRays):
     else:
         stri = TPL.intersect_clusters(
             scene.cl_nodes_f, scene.cl_nodes_i, scene.cl_tris12, *query,
-            any_hit=True)[1]
+            any_hit=True, wide=scene.cl_wide)[1]
     return stri >= 0
 
 

@@ -262,9 +262,12 @@ class Scene:
     st_woop: Optional[torch.Tensor]         # [C * 64, 12] f32
     st_grid: object               # accel.traverse_dda.GridPack or None
     # mid-size soups: the unpadded cluster BVH (meta.use_pallas), else None
+    # (the node tables stay on the host: nothing on a card reads them)
     cl_nodes_f: Optional[torch.Tensor] = None   # [M, 8] f32
     cl_nodes_i: Optional[torch.Tensor] = None   # [M, 4] i32 (skip, toff, tcnt)
     cl_tris12: Optional[torch.Tensor] = None    # [T, 12] f32 (v0, e1, e2)
+    # what the card's cluster kernel walks, derived from cl_tris12
+    cl_wide: object = None                      # accel.wide_bvh.WidePack
     # two-level scenes (meta.use_stream_tlas), else None: the kernel's
     # tables and, per padded leaf slot of the per-mesh BVHs, OBJECT-space
     # shade rows (the UNREMAPPED material id in column 24), mesh id and the
@@ -286,7 +289,9 @@ class Scene:
             out['tex_' + f.name] = getattr(self.textures, f.name).cpu().numpy()
         if self.tt is not None:
             for f in dataclasses.fields(self.tt):
-                out['tt_' + f.name] = getattr(self.tt, f.name).cpu().numpy()
+                if f.name != 'wide':
+                    out['tt_' + f.name] = getattr(self.tt,
+                                                  f.name).cpu().numpy()
         g = self.st_grid
         if g is None:
             return out
@@ -606,6 +611,7 @@ def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
     from ..accel import traverse_stream as TST
     from ..accel import traverse_dda as TDD
     from ..accel import traverse_pallas as TPL
+    from ..accel import wide_bvh as WB
 
     if device is None:
         if not torch.cuda.is_available():
@@ -732,7 +738,7 @@ def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
         accel == 'stream' or len(soup_v0) > TPL.VMEM_TRI_LIMIT)
     use_pallas = (not use_stream_tlas and not use_stream
                   and len(soup_v0) >= SMALL_SCENE_TRIS)
-    stream = clusters = None
+    stream = clusters = cl_wide = None
     if use_stream:
         # streamed cluster BVH: padded leaf-cluster order
         cbvh = build_bvh.build(soup_v0, soup_e1, soup_e2, max_leaf=TST.TBK)
@@ -761,6 +767,7 @@ def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
         soup = [a[order] for a in soup]
         if use_pallas:
             clusters = TPL.pack_cluster_bvh(cbvh, soup_v0, soup_e1, soup_e2)
+            cl_wide = WB.pack_wide_clusters(clusters[2])
     inst, geom, prim, shade, mat_id = soup
     tri_shade = _pad_shade(shade, mat_id)
     tex0_const = _tex0_consts(mats, tc.pool)
@@ -819,9 +826,10 @@ def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
         st_nodes_i=None if stream is None else dev(stream[1]),
         st_woop=None if stream is None else dev(stream[2]),
         st_grid=None if stream is None else stream[3].to(device),
-        cl_nodes_f=None if clusters is None else dev(clusters[0]),
-        cl_nodes_i=None if clusters is None else dev(clusters[1]),
+        cl_nodes_f=None if clusters is None else torch.as_tensor(clusters[0]),
+        cl_nodes_i=None if clusters is None else torch.as_tensor(clusters[1]),
         cl_tris12=None if clusters is None else dev(clusters[2]),
+        cl_wide=None if cl_wide is None else cl_wide.to(device),
         tt=None if two_level is None else two_level[0].to(device),
         tt_shade=None if two_level is None else dev(two_level[1]),
         tt_geom=None if two_level is None else dev(two_level[2], np.int64),

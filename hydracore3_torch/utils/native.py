@@ -18,15 +18,16 @@ REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
 
 
-def build_shared_library(name: str, sources: list[str], cmd: list[str]
-                         ) -> tuple[str, float]:
+def build_shared_library(name: str, sources: list[str], cmd: list[str],
+                         headers: tuple = ()) -> tuple[str, float]:
     """Compile ``sources`` with ``cmd + ['-o', <out>] + sources`` unless a
-    library built from the same inputs exists.
+    library built from the same inputs (``headers``, which the sources
+    include, among them) exists.
 
     Returns (path to the library, seconds spent compiling; 0 when it was
     already built)."""
     h = hashlib.sha256(' '.join(cmd).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         with open(src, 'rb') as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f'{name}-{h.hexdigest()[:16]}.so')

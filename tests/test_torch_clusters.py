@@ -9,7 +9,9 @@ equal, t within rtol 1e-5, u and v within rtol 1e-4 / atol 1e-5) and any-hit
 ``'auto'`` routing at the class boundaries; and the class end to end on a
 4,610-triangle city: the build's cluster tables and one ``trace_pass`` lane
 by lane against the JAX package (accum within rtol/atol 1e-3 on >= 99.5% of
-lanes, flags and RNG state equal on >= 99.9%).
+lanes, flags and RNG state equal on >= 99.9%).  The card-side wide tables
+of the build (``scene.cl_wide``): ``walk_wide_plain`` over them against the
+JAX kernel in interpret mode on the city's camera rays, at the bars above.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from hydracore3_tpu.ops import rng as JRNG
 from hydracore3_tpu.scene import synth as jsynth
 from hydracore3_torch.accel import build_bvh as TB
 from hydracore3_torch.accel import traverse_pallas as TTP
+from hydracore3_torch.accel import wide_bvh as TWB
 from hydracore3_torch.models import integrator_pt as TIPT
 from hydracore3_torch.ops import rng as TRNG
 from hydracore3_torch.scene import build as TBUILD
@@ -229,6 +232,38 @@ def test_mid_city_trace_pass_matches_jax(mid_city):
     assert (t_fl.astype(np.uint32) == j_fl).mean() >= 0.999
     assert (t_rng.astype(np.uint32) == j_rng).all(axis=1).mean() >= 0.999
     assert (t_acc[:, :3].sum(1) > 0).mean() > 0.5
+
+
+@pytest.mark.parametrize('any_hit', [False, True], ids=['nearest', 'anyhit'])
+def test_mid_city_wide_walk_matches_jax_kernel(mid_city, any_hit):
+    """The walk over the build's wide tables returns indices into the
+    contract tables: the JAX kernel's triangles on the camera rays."""
+    jscene, _, tscene, tmeta = mid_city
+    n = tmeta.width * tmeta.height
+    pix = torch.arange(n)
+    st = TIPT.kernel_init_eye_ray(tscene, tmeta, TRNG.gen_init(pix), pix)
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, 60.0 if any_hit else 1e30, np.float32)
+    jt, jtri, ju, jv = (np.asarray(x) for x in JTP.intersect_clusters(
+        jscene.cl_nodes_f, jscene.cl_nodes_i, jscene.cl_tris12,
+        jnp.asarray(st.ray_pos.numpy()), jnp.asarray(st.ray_dir.numpy()),
+        jnp.asarray(tmin), jnp.asarray(tmax), any_hit=any_hit,
+        interpret=True))
+    q = (st.ray_pos, st.ray_dir, torch.from_numpy(tmin),
+         torch.from_numpy(tmax))
+    t, tri, u, v = TWB.walk_wide_plain(tscene.cl_wide, *q, any_hit)
+    hit = tri.numpy() >= 0
+    np.testing.assert_array_equal(hit, jtri >= 0)
+    assert hit.any() and not hit.all()
+    if any_hit:
+        np.testing.assert_array_equal(t.numpy(), jt)
+        assert torch.equal(TTP.occluder_valid(tscene.cl_tris12, tri, *q),
+                           tri >= 0)
+        return
+    np.testing.assert_array_equal(tri.numpy(), jtri)
+    np.testing.assert_allclose(t.numpy()[hit], jt[hit], rtol=1e-5)
+    np.testing.assert_allclose(u.numpy()[hit], ju[hit], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(v.numpy()[hit], jv[hit], rtol=1e-4, atol=1e-5)
 
 
 def test_mid_city_matches_streamed_city():

@@ -24,6 +24,7 @@ from hydracore3_torch.accel import traverse_dda as TTD
 from hydracore3_torch.accel import traverse_pallas as TTP
 from hydracore3_torch.accel import traverse_stream as TTS
 from hydracore3_torch.accel import traverse_tlas as TTT
+from hydracore3_torch.accel import wide_bvh as TWB
 from hydracore3_torch.models import megakernel as TMK
 
 pytestmark = pytest.mark.cuda
@@ -183,14 +184,22 @@ def test_tlas_kernel_matches_plain(cuda, any_hit):
     assert (k[4][k[1] < 0] == -1).all()
 
 
-@pytest.mark.parametrize('any_hit', [False, True])
-def test_clusters_kernel_matches_plain(cuda, any_hit):
-    rng = np.random.default_rng(17)
-    v0, e1, e2 = random_scene(rng, 3000)
+def _cluster_soup(cuda, seed=17, n_tris=3000):
+    """(bvh, contract tables on the card, the kernel's wide tables on the
+    host and on the card) of a random soup."""
+    rng = np.random.default_rng(seed)
+    v0, e1, e2 = random_scene(rng, n_tris)
     bvh = TB.build(v0, e1, e2, max_leaf=TTP.CLUSTER)
     o = bvh.order
-    nf, ni, tris12 = (torch.from_numpy(a).to(cuda) for a in
-                      TTP.pack_cluster_bvh(bvh, v0[o], e1[o], e2[o]))
+    tabs = TTP.pack_cluster_bvh(bvh, v0[o], e1[o], e2[o])
+    wide = TWB.pack_wide_clusters(tabs[2])
+    return (rng, bvh, [torch.from_numpy(a).to(cuda) for a in tabs], wide,
+            wide.to(cuda))
+
+
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_clusters_kernel_matches_plain(cuda, any_hit):
+    rng, bvh, (nf, ni, tris12), wide_cpu, wide = _cluster_soup(cuda)
     n = 8192
     pos, d = random_rays(rng, n)
     # a quarter of the rays start exactly on leaf-box faces
@@ -199,21 +208,107 @@ def test_clusters_kernel_matches_plain(cuda, any_hit):
     pos, d = torch.from_numpy(pos).to(cuda), torch.from_numpy(d).to(cuda)
     tmin = torch.zeros(n, device=cuda)
     tmax = torch.full((n,), 3.0 if any_hit else IPT_FLT_MAX, device=cuda)
+    tmax[::11] = 0.0                                   # dead lanes
     before = TTP.intersect_clusters.launches
-    k = TTP.intersect_clusters(nf, ni, tris12, pos, d, tmin, tmax, any_hit)
+    k = TTP.intersect_clusters(nf, ni, tris12, pos, d, tmin, tmax, any_hit,
+                               wide=wide)
     torch.cuda.synchronize()
     assert TTP.intersect_clusters.launches == before + 1
     p = TTP.intersect_clusters_plain(tris12, pos, d, tmin, tmax, any_hit)
     hit_eq, t_eq, both = _agree(k, p, any_hit)
     assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
     assert both > 100
-    tri_eq = (k[1] == p[1]).float().mean()
-    assert tri_eq >= 0.999, tri_eq
+    assert (k[1][::11] == -1).all()
+    # the same walk in plain torch, lane for lane
+    w = TWB.walk_wide_plain(wide_cpu, pos.cpu(), d.cpu(), tmin.cpu(),
+                            tmax.cpu(), any_hit)
+    assert ((k[1].cpu() >= 0) == (w[1] >= 0)).float().mean() >= 0.999
+    occ = (k[1].cpu() >= 0) & (w[1] >= 0)
+    assert (k[1].cpu() == w[1])[occ].float().mean() >= 0.999
     if any_hit:
         assert (k[0][k[1] >= 0] == 0.0).all()
+        valid = TTP.occluder_valid(tris12, k[1], pos, d, tmin, tmax)
+        assert torch.equal(valid, k[1] >= 0)
     else:
+        tri_eq = (k[1] == p[1]).float().mean()
+        assert tri_eq >= 0.999, tri_eq
         miss = (k[1] < 0).cpu().numpy()
-        assert (k[0].cpu().numpy()[miss] == np.float32(IPT_FLT_MAX)).all()
+        assert (k[0].cpu().numpy()[miss]
+                == tmax.cpu().numpy()[miss]).all()     # t_max not clamped
+
+
+def test_tlas_kernel_matches_walk_wide_plain(cuda):
+    """The two-level kernel against the same walk in plain torch: the
+    coincident pair of instances included, the winner is the same."""
+    pk, pack = _instanced(cuda)
+    rng = np.random.default_rng(12)
+    n = 4096
+    pos, d = (torch.from_numpy(a) for a in random_rays(rng, n, box=10.0))
+    tmin = torch.zeros(n)
+    tmax = torch.full((n,), 0.99 * TTS.FLT_MAX)
+    k = TTT.intersect_stream_tlas(pack, pos.to(cuda), d.to(cuda),
+                                  tmin.to(cuda), tmax.to(cuda))
+    w = TWB.walk_wide_plain(pk['wide'], pos, d, tmin, tmax)
+    hit = w[1] >= 0
+    assert ((k[1].cpu() >= 0) == hit).float().mean() >= 0.999
+    both = hit & (k[1].cpu() >= 0)
+    assert both.sum() > 100
+    assert (k[1].cpu() == w[1])[both].float().mean() >= 0.999
+    assert (k[4].cpu() == w[4])[both].float().mean() >= 0.999
+
+
+def test_kernels_settle_ties_by_index_and_instance(cuda):
+    """Equal t in different leaves and in different instances: the lower
+    contract index, and the instance the contract TLAS's DFS meets first,
+    win whatever the ray's direction (each ray and its mirror)."""
+    # six coincident sheets of 64 quads each: every hit is a tie between a
+    # triangle of the first sheet and its five twins, which leaves of at
+    # most 4 cannot all hold together
+    g = np.arange(8, dtype=np.float32)
+    x, z = (a.reshape(-1) for a in np.meshgrid(g, g, indexing='ij'))
+    low = np.stack([x, np.zeros_like(x), z], 1)
+    sheet = np.zeros((128, 12), np.float32)
+    sheet[:64, 0:3], sheet[:64, 3:6], sheet[:64, 6:9] = \
+        low, (1, 0, 0), (0, 0, 1)
+    sheet[64:, 0:3], sheet[64:, 3:6], sheet[64:, 6:9] = \
+        low + (1, 0, 1), (-1, 0, 0), (0, 0, -1)
+    tris12 = np.concatenate([sheet] * 6)
+    wide = TWB.pack_wide_clusters(tris12).to(cuda)
+    t12 = torch.from_numpy(tris12).to(cuda)
+    rng = np.random.default_rng(5)
+    n = 2048
+    px = rng.uniform(0.1, 7.9, (n, 2)).astype(np.float32)
+    pos = np.stack([px[:, 0], np.full(n, 2.0, np.float32), px[:, 1]], 1)
+    d = np.tile(np.array([[0, -1, 0]], np.float32), (n, 1))
+    for sign in (1.0, -1.0):
+        P = torch.from_numpy(pos * np.array([1, sign, 1], np.float32)).to(cuda)
+        D = torch.from_numpy(d * sign).to(cuda)
+        tmin = torch.zeros(n, device=cuda)
+        tmax = torch.full((n,), 1e30, device=cuda)
+        # the card path reads the wide tables alone
+        k = TTP.intersect_clusters(None, None, None, P, D, tmin, tmax,
+                                   wide=wide)
+        p = TTP.intersect_clusters_plain(t12, P, D, tmin, tmax)
+        assert (p[1] >= 0).all() and (p[1] < 128).all()
+        assert (k[1] >= 0).all() and (k[1] < 128).all()
+        assert (k[1] == p[1]).float().mean() >= 0.999
+    # two instances of one quad at the same place
+    quad = (np.array([[-1, 0, -1], [-1, 0, -1]], np.float32),
+            np.array([[2, 0, 0], [2, 0, 2]], np.float32),
+            np.array([[2, 0, 2], [0, 0, 2]], np.float32))
+    inst = [dict(geom_id=0, m0=np.eye(4, dtype=np.float32)) for _ in range(2)]
+    pk = TTT.pack_stream_tlas([quad], inst)
+    pack = TTT.tlas_pack(pk).to(cuda)
+    leaves = pk['tlas_i'][:, 1]
+    first = int(leaves[leaves >= 0][0])
+    pos = np.stack([rng.uniform(-0.9, 0.9, n), np.full(n, 2.0),
+                    rng.uniform(-0.9, 0.9, n)], 1).astype(np.float32)
+    for sign in (1.0, -1.0):
+        P = torch.from_numpy(pos * np.array([1, sign, 1], np.float32)).to(cuda)
+        D = torch.from_numpy(d * sign).to(cuda)
+        k = TTT.intersect_stream_tlas(pack, P, D, torch.zeros(n, device=cuda),
+                                      torch.full((n,), 1e30, device=cuda))
+        assert (k[1] >= 0).all() and (k[4] == first).all()
 
 
 @pytest.mark.parametrize('any_hit', [False, True])
@@ -389,11 +484,43 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         TTT.intersect_stream_tlas(
             dataclasses.replace(pack, tlas_i=pack.tlas_i.long()), pos, d,
             tmin, tmax)
-    tris12 = torch.zeros(4, 12, device=cuda)
     with pytest.raises(ValueError):
-        TTP.intersect_clusters(nf, ni, tris12.double(), pos, d, tmin, tmax)
+        TTT.intersect_stream_tlas(
+            dataclasses.replace(pack, wide=dataclasses.replace(
+                pack.wide, index=pack.wide.index.long())), pos, d, tmin, tmax)
+    with pytest.raises(ValueError, match='stack'):
+        TTT.intersect_stream_tlas(
+            dataclasses.replace(pack, wide=dataclasses.replace(
+                pack.wide, stack=TWB.MAX_STACK + 1)), pos, d, tmin, tmax)
+    with pytest.raises(ValueError, match='wide'):
+        TTT.intersect_stream_tlas(dataclasses.replace(pack, wide=None), pos,
+                                  d, tmin, tmax)
+    _, _, (cnf, cni, tris12), _, wide = _cluster_soup(cuda, n_tris=40)
     with pytest.raises(ValueError):
-        TTP.intersect_clusters(nf, ni.cpu(), tris12, pos, d, tmin, tmax)
+        TTP.intersect_clusters(cnf, cni, tris12, pos, d, tmin, tmax,
+                               wide=dataclasses.replace(
+                                   wide, rows=wide.rows.double()))
+    with pytest.raises(ValueError):
+        TTP.intersect_clusters(cnf, cni, tris12, pos, d, tmin, tmax,
+                               wide=dataclasses.replace(
+                                   wide, nodes=wide.nodes.cpu()))
+    with pytest.raises(ValueError, match='wide'):
+        TTP.intersect_clusters(cnf, cni, tris12, pos, d, tmin, tmax)
+    with pytest.raises(ValueError, match='stack'):
+        TTP.intersect_clusters(cnf, cni, tris12, pos, d, tmin, tmax,
+                               wide=dataclasses.replace(
+                                   wide, stack=TWB.MAX_STACK + 1))
+    # the wide-BVH kernels read the rays by raw address: a ray tensor off
+    # ray_pos's card, or of another shape, is refused
+    for bad in ((pos, d.cpu(), tmin, tmax), (pos, d, tmin.cpu(), tmax),
+                (pos, d, tmin, tmax.cpu()), (pos, d, tmin, tmax[:1]),
+                (pos, d, tmin[:, None], tmax), (pos, d, tmin, tmax[:, None]),
+                (torch.cat([pos, pos[:, :1]], 1), d, tmin, tmax),
+                (pos, d[:64], tmin, tmax)):
+        with pytest.raises(ValueError):
+            TTP.intersect_clusters(cnf, cni, tris12, *bad, wide=wide)
+        with pytest.raises(ValueError):
+            TTT.intersect_stream_tlas(pack, *bad)
     with pytest.raises(ValueError, match='outlier'):
         TTD.intersect_dda(dataclasses.replace(grid, n_outliers=1), woop, pos,
                           d, tmin, tmax)

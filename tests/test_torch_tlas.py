@@ -9,7 +9,9 @@ and instance ids equal, t within rtol 2e-4 / atol 1e-4, u and v within rtol
 5e-3 / atol 5e-4.  On the small instanced city: every two-level table of
 the build against the JAX build's, and one ``trace_pass`` lane by lane
 (accum within rtol/atol 1e-3 on >= 99.5% of lanes, flags and RNG state
-equal on >= 99%).  ``_remap_material_id`` and the octant/Morton sort are
+equal on >= 99%), and ``walk_wide_plain`` over the build's card-side wide
+tables against the JAX kernel on the city's camera rays, at the kernel
+bars above.  ``_remap_material_id`` and the octant/Morton sort are
 held against their JAX functions on inputs from a numpy seed.
 """
 import types
@@ -24,6 +26,7 @@ from hydracore3_tpu.models import integrator_pt as JIPT
 from hydracore3_tpu.ops import rng as JRNG
 from hydracore3_tpu.scene import synth as jsynth
 from hydracore3_torch.accel import traverse_tlas as TTT
+from hydracore3_torch.accel import wide_bvh as TWB
 from hydracore3_torch.models import integrator_pt as TIPT
 from hydracore3_torch.ops import rng as TRNG
 from hydracore3_torch.scene import synth as tsynth
@@ -220,6 +223,39 @@ def test_icity_trace_pass_matches_jax(icity):
     assert (t_fl.astype(np.uint32) == j_fl).mean() >= 0.99
     assert (t_rng.astype(np.uint32) == j_rng).all(axis=1).mean() >= 0.99
     assert (t_acc[:, :3].sum(1) > 0).mean() > 0.5
+
+
+@pytest.mark.parametrize('any_hit', [False, True], ids=['nearest', 'anyhit'])
+def test_icity_wide_walk_matches_jax_kernel(icity, any_hit):
+    """The walk over the build's wide tables returns the contract's padded
+    slots and instance ids: the JAX kernel's on the camera rays."""
+    jscene, _, tscene, tmeta = icity
+    n = tmeta.width * tmeta.height
+    pix = torch.arange(n)
+    st = TIPT.kernel_init_eye_ray(tscene, tmeta, TRNG.gen_init(pix), pix)
+    t_max = 40.0 if any_hit else 1e30
+    jt, jtri, ju, jv, jinst = (np.asarray(x) for x in
+                               JTT.intersect_stream_tlas(
+        jscene.tt_tlas_f, jscene.tt_tlas_i, jscene.tt_nodes_f,
+        jscene.tt_nodes_i, jscene.tt_inst_f, jscene.tt_inst_i, jscene.tt_tris,
+        jnp.asarray(st.ray_pos.numpy()), jnp.asarray(st.ray_dir.numpy()),
+        jnp.zeros((n,)), jnp.full((n,), t_max), any_hit=any_hit,
+        interpret=True))
+    t, tri, u, v, inst = (x.numpy() for x in TWB.walk_wide_plain(
+        tscene.tt.wide, st.ray_pos, st.ray_dir, torch.zeros(n),
+        torch.full((n,), t_max), any_hit))
+    hit = tri >= 0
+    np.testing.assert_array_equal(hit, jtri >= 0)
+    assert hit.sum() > 20 and not hit.all()
+    if any_hit:
+        np.testing.assert_array_equal(t, jt)
+        assert (tri[hit] == 0).all() and (inst == -1).all()
+        return
+    np.testing.assert_allclose(t[hit], jt[hit], rtol=2e-4, atol=1e-4)
+    np.testing.assert_array_equal(inst[hit], jinst[hit])
+    assert (tri[hit] == jtri[hit]).mean() > 0.99
+    np.testing.assert_allclose(u[hit], ju[hit], rtol=5e-3, atol=5e-4)
+    np.testing.assert_allclose(v[hit], jv[hit], rtol=5e-3, atol=5e-4)
 
 
 def test_icity_matches_flattened_city():
