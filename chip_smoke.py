@@ -4,14 +4,21 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the exit code is not 0):
-  1. the card (nvidia-smi name and power limit) and the kernel build;
+  1. the card (nvidia-smi name and power limit) and the kernel build, with
+     every ray-query kernel's registers and local bytes (K2's and K3's on a
+     line of their own);
   2. the bench city (``scene.synth.city_scene(width=1024, height=1024,
-     depth=5, textured=True)``) built on the card;
+     depth=5, textured=True)``) built on the card, and the table its K2 and
+     K3 walk (``scene.st_wide``, ``wide_bvh.pack_wide_stream``): its bytes,
+     its host seconds (built again from the scene's contract tables) and
+     its two stack needs;
   3. each CUDA kernel against its plain torch version on the queries of the
      render's first bounce, all 1,048,576 lanes each: the camera rays'
      nearest hit (K3, K2), the sorted shadow rays' any-hit (K2) and the
      sorted first-bounce rays' nearest hit (K3, K2); the march-vs-walk trace
      parity on the camera rays, and the count of unresolved march lanes (0);
+     each query's times, its counted box tests, triangle tests and grid
+     cells per ray and the bound they set;
   4. ``render.render`` at 16 spp through both kernels, with launch counts,
      a finite image, and PSNR / mean against tests/goldens/city_bench_128.npz;
   5. the textured box (``scene.synth.box_scene(1024, 768, depth=6,
@@ -61,7 +68,7 @@ entries x 36, grid cells x 20 operations), K1's as the first bounce's two
 brute traces of every lane (a floor: lanes that live on do more).  No
 single PyTorch call computes a ray query or a path-traced sample, so
 ``library_ms`` is null throughout.  The kernel sources (csrc/traverse.cu
-with csrc/traverse_wide.cuh, which holds K4 and K5, its counting build, and
+with csrc/traverse_wide.cuh, which holds K2-K5, its counting build, and
 csrc/megakernel.cu) build in parallel in phase 1;
 nothing of an earlier phase was cut.  The line before the last is a JSON record of the kernels;
 the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
@@ -185,7 +192,9 @@ def compare(name, kernel, plain, any_hit=False):
     hits = int((kernel[1] >= 0).sum())
     log(f'  {name}: hits {hits}/{kernel[1].numel()} agree {agree:.6f} '
         f'tri-equal {a["tri_eq"]:.6f} max|dt| {a["max_dt"]:.3e} '
-        f'max|du|,|dv| {a["max_duv"]:.3e}')
+        f'max|du|,|dv| {a["max_duv"]:.3e}; lanes with another hit flag '
+        f'{a["hit_diff"]}, both-hit lanes with another triangle '
+        f'{a["tri_diff"]} ({a["tie_diff"]} at equal t)')
     if agree < AGREE_MIN or a['tri_eq'] < AGREE_MIN:
         raise RuntimeError(f'{name}: kernel and plain agree on {agree:.6f} '
                            f'of lanes and on the triangle of '
@@ -231,6 +240,7 @@ def main():
     from hydracore3_torch.accel import traverse_pallas as TPL
     from hydracore3_torch.accel import traverse_stream as TST
     from hydracore3_torch.accel import traverse_tlas as TT
+    from hydracore3_torch.accel import wide_bvh as WB
     from hydracore3_torch.models import integrator_pt as IPT
     from hydracore3_torch.models import megakernel as MK
     from hydracore3_torch.ops import rng as RNG
@@ -261,7 +271,11 @@ def main():
         f'({build_s[0]:.2f} s; its counting build {count_s:.2f} s) and '
         f'csrc/megakernel.cu ({build_s[1]:.2f} s) in '
         f'{time.perf_counter() - t0:.2f} s; K1 {MK.kernel_attrs()}')
-    log(f'  registers, spill bytes of K2-K6: {TST.kernel_attrs()}')
+    attrs = TST.kernel_attrs()
+    log(f'  registers, local bytes of K2-K6: {attrs}')
+    log('  K2, K3: ' + ', '.join(
+        f'{k} {attrs[k][0]} registers {attrs[k][1]} local bytes'
+        for k in TST.KERNEL_NAMES[:3]))
     log(f'  of the counting build: {TST.kernel_attrs(count_lib)}')
 
     # ---- 2. the bench city on the card --------------------------------------
@@ -277,6 +291,27 @@ def main():
         f'{g.dims}, {g.n_outliers} outlier clusters, built in {host_s:.2f} s')
     if real != 215_554:
         raise RuntimeError(f'expected 215554 real triangles, got {real}')
+    wide = scene.st_wide
+    host = [getattr(scene, k).cpu().numpy() for k in (
+        'st_nodes_f', 'st_nodes_i', 'st_woop', 'tri_v0', 'tri_e1', 'tri_e2')]
+    t0 = time.perf_counter()
+    again = WB.pack_wide_stream(*host)
+    wide_s = time.perf_counter() - t0
+    wide_tabs = tuple(wide.tensors().values())
+    log(f'  st_wide (the K2/K3 table): {wide.nodes.shape[0]} wide nodes '
+        f'({nbytes(wide.nodes)} B), {wide.rows.shape[0]} Woop rows '
+        f'({nbytes(wide.rows)} B), index {nbytes(wide.index)} B, cl_root '
+        f'{nbytes(wide.cl_root)} B: {nbytes(*wide_tabs) / 2**20:.2f} MiB on '
+        f'the card beside the contract\'s {nbytes(scene.st_woop) / 2**20:.2f}'
+        f' MiB of Woop rows; stack {wide.stack} (of {WB.MAX_STACK}), '
+        f'cl_stack {wide.cl_stack} (of {WB.MARCH_STACK}); built again from '
+        f'the contract tables on the host in {wide_s:.2f} s')
+    # (node records hold int32 references: compare bits, not floats)
+    if not np.array_equal(again.nodes.view(np.int32),
+                          wide.nodes.cpu().numpy().view(np.int32)) or \
+            not np.array_equal(host[2][again.index], again.rows):
+        raise RuntimeError('pack_wide_stream is not deterministic')
+    del again, host
 
     # ---- 3. kernels against the plain version, at the main path's shapes --
     # The queries of the render's first bounce, built by the integrator's
@@ -286,9 +321,23 @@ def main():
     N = meta.width * meta.height
     woop = scene.st_woop
     stream = lambda *q, **kw: TST.intersect_stream(  # noqa: E731
-        scene.st_nodes_f, scene.st_nodes_i, woop, *q, **kw)
+        scene.st_nodes_f, scene.st_nodes_i, woop, *q, wide=wide, **kw)
     march = lambda *q, **kw: TDD.intersect_march(  # noqa: E731
-        scene.st_grid, woop, *q, with_unresolved=True, **kw)
+        scene.st_grid, woop, *q, with_unresolved=True, wide=wide, **kw)
+
+    def query_counts(name, label, run, tables, tri_ops, n=N):
+        """One counted launch of a query: its tests per ray and the bound
+        they set; ``tables`` are what the kernel reads, and the outputs
+        count at the size the kernel writes them (int64 indices)."""
+        with counted(TST, count_lib) as c:
+            out = run()
+        b = ray_query_bound(c, n, nbytes(*out) / (4 * n), tables,
+                            tri_ops=tri_ops)
+        log(f'  {name} {label}: per ray {c[0] / n:.2f} child-box tests, '
+            f'{c[1] / n:.2f} triangle tests, {c[2] / n:.3f} instance '
+            f'entries, {c[3] / n:.3f} grid cells; bound {b[0]:.4f} ms by '
+            f'{b[1]} {b[2]}')
+        return b
     errs = {'intersect_stream': 0.0, 'intersect_march': 0.0}
     bounds = {}
     unresolved = 0
@@ -369,20 +418,24 @@ def main():
     for label, q in (('camera', cam_q), ('bounce', bounce_q)):
         log(f'  K2 nearest, {label}: {cuda_ms(lambda: stream(*q), 10):.3f} '
             f'ms')
-    # the bounds of the two timed queries, from their counted launches
+    # what each query's walk did, and the bounds it sets; the table rows
+    # carry the two timed queries' (K2's reads st_wide's nodes, rows and
+    # index; K3's the grid and all of st_wide)
     g = scene.st_grid
-    with counted(TST, count_lib) as c:
-        stream(*shadow_q, any_hit=True)
-    bounds['intersect_stream'] = ray_query_bound(
-        c, N, 4, (scene.st_nodes_f, scene.st_nodes_i, woop))
-    with counted(TST, count_lib) as c:
-        march(*cam_q)
-    bounds['intersect_march'] = ray_query_bound(
-        c, N, 5, (g.cell_tab, g.cell_cl, g.cl_aabb, g.cl_count, g.outliers,
-                  woop))
-    for name in ('intersect_stream', 'intersect_march'):
-        log(f'  {name}: bound {bounds[name][0]:.4f} ms by {bounds[name][1]} '
-            f'{bounds[name][2]}')
+    k2_tabs = (wide.nodes, wide.rows, wide.index)
+    k3_tabs = (g.cell_tab, g.cell_cl, g.cl_aabb, g.outliers) + wide_tabs
+    bounds['intersect_stream'] = query_counts(
+        'intersect_stream', 'any-hit, shadow',
+        lambda: stream(*shadow_q, any_hit=True), k2_tabs, WOOP_OPS)
+    for label, q in (('nearest, camera', cam_q), ('nearest, bounce',
+                                                  bounce_q)):
+        query_counts('intersect_stream', label, lambda: stream(*q), k2_tabs,
+                     WOOP_OPS)
+    bounds['intersect_march'] = query_counts(
+        'intersect_march', 'camera', lambda: march(*cam_q), k3_tabs,
+        WOOP_OPS)
+    query_counts('intersect_march', 'bounce', lambda: march(*bounce_q),
+                 k3_tabs, WOOP_OPS)
 
     # ---- 4. the slice: render.render at 16 spp ------------------------------
     spp = 16
@@ -554,19 +607,6 @@ def main():
         if p_ < PSNR_MIN or m_ > MEAN_TOL:
             raise RuntimeError(f'{label}: PSNR {p_:.2f} dB, mean '
                                f'{100 * m_:.3f}% off')
-
-    def query_counts(name, label, run, tables, tri_ops):
-        """One counted launch of a query: its tests per ray and the bound
-        they set; ``tables`` are what the kernel reads, and the outputs
-        count at the size the kernel writes them (int64 indices)."""
-        with counted(TST, count_lib) as c:
-            out = run()
-        b = ray_query_bound(c, N, nbytes(*out) / (4 * N), tables,
-                            tri_ops=tri_ops)
-        log(f'  {name} {label}: per ray {c[0] / N:.2f} child-box tests, '
-            f'{c[1] / N:.2f} triangle tests, {c[2] / N:.3f} instance '
-            f'entries; bound {b[0]:.4f} ms by {b[1]} {b[2]}')
-        return b
 
     # ---- 6. the instanced city through the two-level kernel (K4) ---------
     ICITY = dict(n_blocks=32, subdiv=3, ground_subdiv=32, width=1024,
@@ -763,8 +803,8 @@ def main():
         f'{bounds["cell_pass"][1]} {bounds["cell_pass"][2]}')
 
     csrc = 'hydracore3_torch/csrc/'
-    src = {'intersect_stream': csrc + 'traverse.cu',
-           'intersect_march': csrc + 'traverse.cu',
+    src = {'intersect_stream': csrc + 'traverse_wide.cuh',
+           'intersect_march': csrc + 'traverse_wide.cuh',
            'mega_sample': csrc + 'megakernel.cu',
            'mega_regen': csrc + 'megakernel.cu',
            'intersect_tlas': csrc + 'traverse_wide.cuh',

@@ -8,7 +8,12 @@ clusters far outside it (the overhead area light) go to an outlier list.
 hit: outliers first, then the march.  Its output contract is
 ``intersect_stream``'s, plus an ``unresolved`` mask for lanes the march left
 live at its iteration cap (the CUDA kernel marches every lane to its end,
-so the mask is expected to be all zeros).
+so the mask is expected to be all zeros).  On the card
+(``csrc/traverse_wide.cuh``, ``intersect_march_kernel``) it reads the grid
+tables and ``wide``, the table ``intersect_stream`` walks
+(``wide_bvh.pack_wide_stream``): at each cluster whose box a ray enters it
+walks that cluster's subtree from ``wide.cl_root[slot]`` near-first,
+instead of testing the cluster's 64 rows.
 
 ``intersect_dda`` is the older wavefront: the host steps every ray from
 cell to cell in rounds, and one kernel launch per round (``cell_pass``)
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from . import traverse_stream as TST
+from . import wide_bvh as WB
 
 TARGET_CLUSTERS_PER_CELL = 8.0
 MAX_DIM = 64            # cells per axis at most
@@ -140,27 +146,34 @@ def pack_grid(nodes_f: np.ndarray, nodes_i: np.ndarray,
 
 
 def intersect_march(grid: GridPack, woop, ray_pos, ray_dir, t_min, t_max,
-                    with_unresolved: bool = False):
+                    with_unresolved: bool = False, wide=None):
     """Nearest hit by marching the grid.  Returns (t, tri, u, v) and, with
-    ``with_unresolved``, an int32 [N] mask of lanes left live at the cap."""
-    t_max = torch.clamp(t_max, max=0.99 * TST.FLT_MAX)
+    ``with_unresolved``, an int32 [N] mask of lanes left live at the cap.
+    ``woop`` is read by the plain version alone; a query on the card reads
+    the grid and ``wide`` (``scene.st_wide``) and raises without it."""
     dev = ray_pos.device
     N = ray_pos.shape[0]
     if dev.type == 'cpu':
-        out = TST.intersect_plain(woop, ray_pos, ray_dir, t_min, t_max)
+        out = TST.intersect_plain(woop, ray_pos, ray_dir, t_min,
+                                  torch.clamp(t_max, max=TST.T_MAX_CAP))
         un = torch.zeros(N, dtype=torch.int32)
         return out + (un,) if with_unresolved else out
     if dev.type != 'cuda':
         raise ValueError(f'intersect_march: unsupported device {dev}')
+    if wide is None or wide.cl_root is None:
+        raise ValueError('intersect_march: a query on the card needs '
+                         'wide=scene.st_wide (wide_bvh.pack_wide_stream)')
+    WB.require_stack('intersect_march', wide.cl_stack, WB.MARCH_STACK)
     lib = TST.kernel_library()
     i32, f32 = torch.int32, torch.float32
     TST.check_cuda_inputs('intersect_march', dict(
         cell_tab=(grid.cell_tab, i32), cell_cl=(grid.cell_cl, i32),
-        cl_aabb=(grid.cl_aabb, f32), cl_count=(grid.cl_count, i32),
-        outliers=(grid.outliers, i32), woop=(woop, f32)), dev)
-    rays = TST.pack_rays(ray_pos, ray_dir, t_min, t_max)
+        cl_aabb=(grid.cl_aabb, f32), outliers=(grid.outliers, i32),
+        wide_nodes=(wide.nodes, f32), wide_rows=(wide.rows, f32),
+        wide_index=(wide.index, i32), wide_cl_root=(wide.cl_root, i32)), dev)
+    rays = TST.ray_arrays('intersect_march', ray_pos, ray_dir, t_min, t_max)
     t = torch.empty(N, dtype=f32, device=dev)
-    tri = torch.empty(N, dtype=i32, device=dev)
+    tri = torch.empty(N, dtype=torch.int64, device=dev)
     u = torch.empty(N, dtype=f32, device=dev)
     v = torch.empty(N, dtype=f32, device=dev)
     un = torch.empty(N, dtype=i32, device=dev)
@@ -168,16 +181,16 @@ def intersect_march(grid: GridPack, woop, ray_pos, ray_dir, t_min, t_max,
     if N > 0:
         rc = lib.hc3_intersect_march(
             grid.cell_tab.data_ptr(), grid.cell_cl.data_ptr(),
-            grid.cl_aabb.data_ptr(), grid.cl_count.data_ptr(),
-            grid.outliers.data_ptr(), grid.n_outliers, woop.data_ptr(),
-            rays.data_ptr(), N, *grid.lo, *grid.h, d0, d1, d2,
-            4 * (d0 + d1 + d2) + 64,
+            grid.cl_aabb.data_ptr(), grid.outliers.data_ptr(),
+            grid.n_outliers, wide.nodes.data_ptr(), wide.rows.data_ptr(),
+            wide.index.data_ptr(), wide.cl_root.data_ptr(), wide.cl_stack,
+            *(x.data_ptr() for x in rays), TST.T_MAX_CAP, N, *grid.lo,
+            *grid.h, d0, d1, d2, 4 * (d0 + d1 + d2) + 64,
             t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-            un.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            un.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         TST.launch_checked('intersect_march', rc)
         intersect_march.launches += 1
-    out = (t, tri.to(torch.int64), u, v)
+    out = (t, tri, u, v)
     return out + (un,) if with_unresolved else out
 
 

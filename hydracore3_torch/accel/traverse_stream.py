@@ -4,13 +4,21 @@ The counterpart of ``hydracore3_tpu/accel/traverse_stream.py``.  The scene
 is a skip-pointer BVH whose leaves are clusters of up to ``TBK`` triangles
 in Woop form: row ``c * TBK + k`` of the ``[C * TBK, 12]`` table holds the
 three affine Woop rows of triangle ``k`` of cluster ``c`` (zeros for
-padding).  ``intersect_stream`` launches the hand-written CUDA kernel
-(``csrc/traverse.cu``) for tensors on the card and the plain torch version,
-``intersect_plain``, for tensors on the CPU.
+padding).  These contract tables are what the plain torch version,
+``intersect_plain``, reads and what every returned index points into.
+
+On the card ``intersect_stream`` launches the hand-written CUDA kernel
+(``csrc/traverse_wide.cuh``, ``intersect_stream_kernel``), which reads
+``wide`` alone: ``wide_bvh.pack_wide_stream``'s table, derived from the
+contract tables at scene build (``scene.st_wide``), of 4-wide nodes over
+leaves of at most 4 of the same Woop rows (each cluster a subtree of its
+own under the collapsed stream BVH), walked near-first with a stack per
+thread.  For tensors on the CPU it is ``intersect_plain``.
 
 Output contract (the JAX wrapper's): ``(t, tri, u, v)`` with ``tri`` the
 padded leaf-order triangle index, -1 on a miss (t is then the clamped
-t_max); under any-hit ``tri >= 0`` with ``t = t_min`` marks occlusion.
+t_max); among equal t the lowest index wins; under any-hit ``tri = 0`` with
+``t = t_min`` marks occlusion.
 """
 from __future__ import annotations
 
@@ -21,12 +29,15 @@ import numpy as np
 import torch
 
 from ..utils.native import PKG_DIR, build_shared_library
+from . import wide_bvh as WB
 
 FLT_MAX = 3.4e38
+# the largest t_max a query walks with (below the miss sentinel), as float32
+T_MAX_CAP = float(np.float32(0.99 * FLT_MAX))
 TBK = 64                 # triangles per cluster
 _BIG_I = 0x7FFFFFF0
 _CU_SRC = os.path.join(PKG_DIR, 'csrc', 'traverse.cu')
-# included by traverse.cu: the wide-BVH kernels of traverse_pallas / _tlas
+# included by traverse.cu: the wide-BVH kernels (K2-K5)
 _CU_HEADERS = (os.path.join(PKG_DIR, 'csrc', 'traverse_wide.cuh'),)
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC']
@@ -53,9 +64,10 @@ def load_library(defines=()):
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hc3_intersect_stream.restype = i
-    lib.hc3_intersect_stream.argtypes = [p, p, p, p, i, i] + [p] * 5
+    lib.hc3_intersect_stream.argtypes = [p] * 7 + [f, i, i, i] + [p] * 5
     lib.hc3_intersect_march.restype = i
-    lib.hc3_intersect_march.argtypes = ([p] * 5 + [i, p, p, i] + [f] * 6
+    lib.hc3_intersect_march.argtypes = ([p] * 4 + [i] + [p] * 4 + [i]
+                                        + [p] * 4 + [f, i] + [f] * 6
                                         + [i] * 4 + [p] * 6)
     lib.hc3_intersect_tlas.restype = i
     lib.hc3_intersect_tlas.argtypes = [p] * 9 + [f, i, i, i] + [p] * 6
@@ -74,9 +86,10 @@ def load_library(defines=()):
 
 
 def build_kernels() -> float:
-    """Compile (at first use) and load ``csrc/traverse.cu``, the source of
-    every ray-query kernel (this module's, ``traverse_dda``'s,
-    ``traverse_tlas``'s and ``traverse_pallas``'s); returns the seconds
+    """Compile (at first use) and load ``csrc/traverse.cu`` with its header
+    ``csrc/traverse_wide.cuh``, the source of every ray-query kernel (this
+    module's, ``traverse_dda``'s, ``traverse_tlas``'s and
+    ``traverse_pallas``'s); returns the seconds
     spent compiling (0 when already built or loaded)."""
     global _lib
     if _lib is not None:
@@ -126,7 +139,8 @@ def check_cuda_inputs(name, tensors: dict, device):
 
 
 def pack_rays(ray_pos, ray_dir, t_min, t_max):
-    """[N, 8] f32 rows (pos3, dir3, tmin, tmax) as the kernels read them."""
+    """[N, 8] f32 rows (pos3, dir3, tmin, tmax) as the cell pass reads
+    them."""
     return torch.cat([ray_pos, ray_dir, t_min[:, None], t_max[:, None]],
                      dim=1).to(torch.float32).contiguous()
 
@@ -222,7 +236,10 @@ def hits_agree(kernel, plain, any_hit: bool = False) -> dict:
     ``tri_eq`` (both-hit lanes reporting the same triangle); maxima over
     the lanes where both report the same triangle: ``max_dt`` and
     ``max_duv`` (the barycentrics; 0 under any-hit, which returns none);
-    ``both``, the count of both-hit lanes.  Under any-hit occlusion is
+    counts: ``both`` both-hit lanes, ``hit_diff`` lanes whose hit flags
+    differ, ``tri_diff`` both-hit lanes with another triangle and
+    ``tie_diff`` those of them where both t are equal (a tie settled the
+    other way).  Under any-hit occlusion is
     boolean and ``tri >= 0`` only marks it: most kernels report 0, the
     cluster kernel the first occluder its walk meets (any valid one; the
     plain version the lowest), so every both-hit lane counts as the same
@@ -234,8 +251,11 @@ def hits_agree(kernel, plain, any_hit: bool = False) -> dict:
     both = kh & ph
     same = both if any_hit else both & (ktri == ptri)
     n_both = int(both.sum())
+    other = both & ~same
     out = dict(hit_eq=float((kh == ph).mean()), t_ok=1.0, tri_eq=1.0,
-               max_dt=0.0, max_duv=0.0, both=n_both)
+               max_dt=0.0, max_duv=0.0, both=n_both,
+               hit_diff=int((kh != ph).sum()), tri_diff=int(other.sum()),
+               tie_diff=int((other & (kt == pt)).sum()))
     if n_both:
         out['t_ok'] = float(np.isclose(kt[both], pt[both], rtol=2e-4,
                                        atol=1e-5).mean())
@@ -249,38 +269,46 @@ def hits_agree(kernel, plain, any_hit: bool = False) -> dict:
 
 
 def intersect_stream(nodes_f, nodes_i, woop, ray_pos, ray_dir, t_min, t_max,
-                     any_hit: bool = False):
+                     any_hit: bool = False, wide=None):
     """Nearest-hit / any-hit over the streamed cluster BVH.
 
     nodes_f [M, 8] f32 (bmin3, bmax3, pad2); nodes_i [M, 4] i32 (skip,
-    cluster slot or -1, tri count, pad); woop [C * TBK, 12] f32.  Returns
-    (t, tri, u, v); tri is int64."""
-    # below the miss sentinel (the JAX wrapper's clamp, ROADMAP.md §3)
-    t_max = torch.clamp(t_max, max=0.99 * FLT_MAX)
+    cluster slot or -1, tri count, pad); woop [C * TBK, 12] f32: the
+    contract tables, of which only ``woop`` is read, by the plain version.
+    A query on the card reads ``wide`` alone, the ``wide_bvh.WidePack``
+    derived from them (``wide_bvh.pack_wide_stream``, ``scene.st_wide``),
+    and raises without it.  Returns (t, tri, u, v); tri is int64."""
     dev = ray_pos.device
     if dev.type == 'cpu':
-        return intersect_plain(woop, ray_pos, ray_dir, t_min, t_max, any_hit)
+        return intersect_plain(woop, ray_pos, ray_dir, t_min,
+                               torch.clamp(t_max, max=T_MAX_CAP), any_hit)
     if dev.type != 'cuda':
         raise ValueError(f'intersect_stream: unsupported device {dev}')
+    if wide is None:
+        raise ValueError('intersect_stream: a query on the card needs '
+                         'wide=scene.st_wide (wide_bvh.pack_wide_stream)')
+    WB.require_stack('intersect_stream', wide.stack)
     lib = kernel_library()
     check_cuda_inputs('intersect_stream', dict(
-        nodes_f=(nodes_f, torch.float32), nodes_i=(nodes_i, torch.int32),
-        woop=(woop, torch.float32)), dev)
+        wide_nodes=(wide.nodes, torch.float32),
+        wide_rows=(wide.rows, torch.float32),
+        wide_index=(wide.index, torch.int32)), dev)
     N = ray_pos.shape[0]
-    rays = pack_rays(ray_pos, ray_dir, t_min, t_max)
+    rays = ray_arrays('intersect_stream', ray_pos, ray_dir, t_min, t_max)
     t = torch.empty(N, dtype=torch.float32, device=dev)
-    tri = torch.empty(N, dtype=torch.int32, device=dev)
+    tri = torch.empty(N, dtype=torch.int64, device=dev)
     u = torch.empty(N, dtype=torch.float32, device=dev)
     v = torch.empty(N, dtype=torch.float32, device=dev)
     if N > 0:
         rc = lib.hc3_intersect_stream(
-            nodes_f.data_ptr(), nodes_i.data_ptr(), woop.data_ptr(),
-            rays.data_ptr(), N, int(any_hit), t.data_ptr(), tri.data_ptr(),
+            wide.nodes.data_ptr(), wide.rows.data_ptr(),
+            wide.index.data_ptr(), *(x.data_ptr() for x in rays), T_MAX_CAP,
+            N, int(any_hit), wide.stack, t.data_ptr(), tri.data_ptr(),
             u.data_ptr(), v.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         launch_checked('intersect_stream', rc)
         intersect_stream.launches += 1
-    return t, tri.to(torch.int64), u, v
+    return t, tri, u, v
 
 
 intersect_stream.launches = 0

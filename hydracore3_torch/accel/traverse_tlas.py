@@ -33,10 +33,7 @@ import torch
 from . import build_bvh
 from . import traverse_stream as TST
 from . import wide_bvh as WB
-from .traverse_stream import TBK, FLT_MAX
-
-# the largest t_max a query walks with, as float32
-T_MAX_CAP = float(np.float32(0.99 * FLT_MAX))
+from .traverse_stream import TBK, T_MAX_CAP
 
 _TABLES = ('tlas_f', 'tlas_i', 'nodes_f', 'nodes_i', 'inst_f', 'inst_i',
            'woop', 'mesh_clusters')

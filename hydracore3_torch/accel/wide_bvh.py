@@ -21,6 +21,10 @@ host:
   triangle order (in a TLAS: one instance, ``offset`` its id);
 * ``pack_wide_clusters``: the one-level tables of ``intersect_clusters``;
 * ``pack_wide_tlas``: the two-level tables of ``intersect_stream_tlas``;
+* ``pack_wide_stream``: one table for both streamed queries,
+  ``intersect_stream`` and ``intersect_march``: a tree per cluster of the
+  stream BVH (its roots in ``cl_root``, what the march enters at a cluster)
+  under the collapsed stream BVH itself, over the contract's Woop rows;
 * ``walk_wide_plain``: the kernels' walk in plain torch, batched over rays,
   for the tests: near-first order with a per-lane stack, a popped entry
   culled when its entry distance lies beyond the best t, and ties settled by
@@ -43,6 +47,7 @@ EMPTY = -0x80000000          # no child / nothing left to visit
 NODE_WORDS = 32              # 8 rows of 4 words
 REF_ROW = 6                  # the row of child references
 MAX_STACK = 64               # entries per ray the kernels provide
+MARCH_STACK = 16             # entries per ray the march provides in a cluster
 _INF = float('inf')
 _DET_EPS = 1e-12
 
@@ -51,19 +56,23 @@ def leaf_ref(offset, count):
     return ~(offset * 8 + count)
 
 
-def require_stack(name: str, needed: int):
+def require_stack(name: str, needed: int, provided: int = MAX_STACK):
     """Raise rather than let a walk overflow its stack."""
-    if needed > MAX_STACK:
+    if needed > provided:
         raise ValueError(f'{name}: the tree needs a stack of {needed} entries '
-                         f'per ray, the walk provides {MAX_STACK}')
+                         f'per ray, the walk provides {provided}')
 
 
-def collapse(bvh: build_bvh.FlatBVH, leaf_offset=None, leaf_count=None):
+def collapse(bvh: build_bvh.FlatBVH, leaf_offset=None, leaf_count=None,
+             leaf_node=None, leaf_stack=None):
     """Collapse a binary BVH in DFS pre-order (left child ``i + 1``, right
     child ``skip[i + 1]``) into WIDTH-wide nodes: a node adopts its child
     of largest surface area's two children until it holds WIDTH or only
     leaves are left.  ``leaf_offset`` / ``leaf_count`` (default: the BVH's
-    own) are what a leaf's reference carries.
+    own) are what a leaf's reference carries.  With ``leaf_node`` (per
+    binary node) a leaf becomes instead a reference to the wide node
+    ``M + leaf_node[leaf]``, a subtree stored after this tree's M records,
+    whose walk needs ``leaf_stack[leaf]`` entries of stack.
 
     Returns (nodes [M, NODE_WORDS] f32, stack): the records in DFS
     pre-order, root first, and the most entries a near-first walk of the
@@ -76,7 +85,7 @@ def collapse(bvh: build_bvh.FlatBVH, leaf_offset=None, leaf_count=None):
     ext = (bvh.bmax - bvh.bmin).astype(np.float64)
     area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
             + ext[:, 2] * ext[:, 0]).tolist()
-    if int(cnt.max(initial=0)) > LEAF_MAX:
+    if leaf_node is None and int(cnt.max(initial=0)) > LEAF_MAX:
         raise ValueError(f'a leaf holds {int(cnt.max())} > {LEAF_MAX} rows')
 
     kids_of = []             # per wide node: its binary-node children
@@ -107,13 +116,19 @@ def collapse(bvh: build_bvh.FlatBVH, leaf_offset=None, leaf_count=None):
         for c, k in enumerate(kids):
             nodes[w, c:3 * WIDTH:WIDTH] = bvh.bmin[k]
             nodes[w, 3 * WIDTH + c:6 * WIDTH:WIDTH] = bvh.bmax[k]
-            refs[w, c] = (leaf_ref(int(off[k]), int(cnt[k])) if is_leaf[k]
-                          else slot_of[k])
+            if not is_leaf[k]:
+                refs[w, c] = slot_of[k]
+            elif leaf_node is None:
+                refs[w, c] = leaf_ref(int(off[k]), int(cnt[k]))
+            else:
+                refs[w, c] = M + int(leaf_node[k])
     nodes.view(np.int32)[:, REF_ROW * 4:REF_ROW * 4 + WIDTH] = refs
     # children follow their parents, so the subtrees' needs are known first
     stack = [0] * M
     for w in range(M - 1, -1, -1):
-        below = max((stack[r] for r in refs[w] if r >= 0), default=0)
+        below = max((stack[slot_of[k]] if not is_leaf[k] else
+                     0 if leaf_node is None else int(leaf_stack[k])
+                     for k in kids_of[w]), default=0)
         stack[w] = len(kids_of[w]) - 1 + below
     return nodes, stack[0]
 
@@ -129,16 +144,18 @@ def node_boxes(nodes: np.ndarray):
     return b[:, :, 0:3], b[:, :, 3:6]
 
 
-_WIDE_TABLES = ('nodes', 'rows', 'index', 'inst_f', 'inst_i')
+_WIDE_TABLES = ('nodes', 'rows', 'index', 'inst_f', 'inst_i', 'cl_root')
 
 
 @dataclasses.dataclass(frozen=True)
 class WidePack:
     """What a wide-BVH kernel walks; numpy on the host, tensors on a
     device.  One level (``inst_f is None``): ``rows`` are (v0, e1, e2)
-    rows, tested with Moller-Trumbore.  Two levels: node 0 roots the TLAS,
-    whose leaves are instances, the meshes' trees follow in ``nodes``, and
-    ``rows`` are object-space Woop rows."""
+    rows, tested with Moller-Trumbore, or with ``woop`` the contract's Woop
+    rows (the streamed scenes', whose clusters root subtrees of their own:
+    ``cl_root``).  Two levels: node 0 roots the TLAS, whose leaves are
+    instances, the meshes' trees follow in ``nodes``, and ``rows`` are
+    object-space Woop rows."""
     nodes: object          # [M, 32] f32: the node records
     rows: object           # [T, 12] f32: triangle rows in fine leaf order
     index: object          # [T] i32: fine position -> contract index
@@ -146,6 +163,9 @@ class WidePack:
     inst_f: object = None  # [I, 16] f32: the contract's inverse matrices
     inst_i: object = None  # [I, 4] i32: (mesh's root node, the instance's
     #                        rank in the contract TLAS's DFS leaf order, 0, 0)
+    woop: bool = False     # one level: rows are Woop rows
+    cl_root: object = None  # [C] i32: the wide node that roots cluster c
+    cl_stack: int = 0      # stack entries a walk from a cl_root needs
 
     def to(self, device) -> 'WidePack':
         moved = {k: torch.as_tensor(getattr(self, k), device=device)
@@ -213,6 +233,61 @@ def pack_wide_tlas(pk: dict, mesh_tris: list, tlas_bvh) -> WidePack:
                     index=np.concatenate(index).astype(np.int32),
                     stack=stack_t + stack_m,
                     inst_f=pk['inst_f'], inst_i=inst_i)
+
+
+def pack_wide_stream(nodes_f, nodes_i, woop, v0, e1, e2) -> WidePack:
+    """The card-side table of both streamed queries, from the contract
+    tables of ``traverse_stream.pack_stream_bvh`` (``nodes_f``, ``nodes_i``,
+    ``woop`` [C * TBK, 12]) and the soup in the same padded slot order
+    (``v0``, ``e1``, ``e2`` [C * TBK, 3]).
+
+    Each cluster's real triangles (slots ``c * TBK`` to ``c * TBK +
+    count``) get a tree of their own, rooted at wide node ``cl_root[c]``;
+    the stream BVH, collapsed, sits on top (node 0 its root) with each of
+    its leaves a reference to its cluster's root.  ``rows`` are the
+    contract's Woop rows bit for bit and ``index`` their padded slots, so a
+    walk returns the contract's t and triangle; padding slots appear
+    nowhere.  ``stack`` is what a walk from node 0 needs, ``cl_stack`` what
+    a walk from any cluster root needs."""
+    nodes_f = np.asarray(nodes_f, np.float32)
+    nodes_i = np.asarray(nodes_i, np.int32)
+    woop = np.asarray(woop, np.float32)
+    leaf = nodes_i[:, 1] >= 0
+    # the stream BVH as the SAH build gave it: a leaf is a cluster, its slot
+    # where a triangle leaf has its offset
+    top = build_bvh.FlatBVH(
+        bmin=nodes_f[:, 0:3], bmax=nodes_f[:, 3:6], skip=nodes_i[:, 0],
+        tri_offset=np.where(leaf, nodes_i[:, 1], 0),
+        tri_count=np.where(leaf, nodes_i[:, 2], 0), order=None)
+    count = np.zeros(int(leaf.sum()), np.int64)
+    count[nodes_i[leaf, 1]] = nodes_i[leaf, 2]
+    tbk = len(woop) // len(count)            # slots per cluster
+    parts, index, roots, stacks = [], [], [], []
+    n_nodes = n_rows = 0
+    for c, k in enumerate(count.tolist()):
+        s = np.arange(c * tbk, c * tbk + k)
+        fine = _fine_bvh(v0[s], e1[s], e2[s])
+        nodes, stack = collapse(fine, leaf_offset=fine.tri_offset + n_rows)
+        parts.append(nodes)
+        roots.append(n_nodes)
+        stacks.append(stack)
+        index.append(s[fine.order])
+        n_nodes += len(nodes)
+        n_rows += k
+    roots, stacks = np.asarray(roots), np.asarray(stacks)
+    top_nodes, stack = collapse(top, leaf_node=roots[top.tri_offset],
+                                leaf_stack=stacks[top.tri_offset])
+    M = len(top_nodes)
+    nodes = np.concatenate([top_nodes, *parts])
+    # each cluster's references are to its own records: after the top's
+    refs = node_refs(nodes)[M:]
+    base = np.repeat(roots + M, [len(p) for p in parts])[:, None]
+    refs[:] = np.where(refs >= 0, refs + base, refs)
+    index = np.concatenate(index)
+    return WidePack(nodes=nodes, rows=np.ascontiguousarray(woop[index]),
+                    index=index.astype(np.int32), stack=stack, woop=True,
+                    cl_root=(roots + M).astype(np.int32),
+                    cl_stack=int(stacks.max()))
 
 
 # ---- the walk in plain torch ----------------------------------------------
@@ -292,17 +367,21 @@ def _woop(row, pos, d):
 
 
 def walk_wide_plain(pack: WidePack, ray_pos, ray_dir, t_min, t_max,
-                    any_hit: bool = False, counts: dict | None = None):
+                    any_hit: bool = False, counts: dict | None = None,
+                    root=0):
     """The wide-BVH kernels' walk in plain torch.
 
-    One level returns ``intersect_clusters``' (t, tri, u, v); two levels
-    ``intersect_stream_tlas``' (t, tri, u, v, inst), for which ``t_max``
-    must already be clamped below the miss sentinel.  Every lane keeps a
-    stack of ``MAX_STACK`` (reference, entry distance) pairs; each round a
-    lane visits one node (tests its children, enters the nearest hit one,
-    pushes the others far to near), tests one leaf, or pops one entry.
-    ``counts``, when given, receives the lanes' child-box tests, triangle
-    tests and instance entries."""
+    One level returns ``intersect_clusters``' (t, tri, u, v), or over
+    ``pack_wide_stream``'s Woop rows ``intersect_stream``'s; two levels
+    ``intersect_stream_tlas``' (t, tri, u, v, inst).  Over Woop rows
+    ``t_max`` must already be clamped below the miss sentinel.  Every lane
+    keeps a stack of ``MAX_STACK`` (reference, entry distance) pairs; each
+    round a lane visits one node (tests its children, enters the nearest
+    hit one, pushes the others far to near), tests one leaf, or pops one
+    entry.  ``root`` (one node, or one per lane) is where the walks start:
+    node 0, or a cluster's root as the march enters it.  ``counts``, when
+    given, receives the lanes' child-box tests, triangle tests and instance
+    entries."""
     from .traverse_tlas import to_object_space
     require_stack('walk_wide_plain', pack.stack)
     two_level = pack.inst_f is not None
@@ -330,7 +409,8 @@ def walk_wide_plain(pack: WidePack, ray_pos, ray_dir, t_min, t_max,
     # the ray a lane walks with: the world's, or the entered instance's
     pos, d = ray_pos.clone(), ray_dir.clone()
     inv = _safe_inv(d)
-    cur = torch.zeros(N, dtype=torch.int64, device=dev)      # the root
+    cur = torch.as_tensor(root, dtype=torch.int64, device=dev) \
+        .expand(N).clone()
     sp = torch.zeros(N, dtype=torch.int64, device=dev)
     st_ref = torch.full((N, MAX_STACK), EMPTY, dtype=torch.int64, device=dev)
     st_t = torch.zeros((N, MAX_STACK), dtype=torch.float32, device=dev)
@@ -338,7 +418,7 @@ def walk_wide_plain(pack: WidePack, ray_pos, ray_dir, t_min, t_max,
     base = torch.zeros(N, dtype=torch.int64, device=dev)     # sp at entry
     done = ~(best_t > t_min)              # an empty interval walks nothing
     n_box = n_tri = n_inst = 0
-    test = _woop if two_level else moller_trumbore
+    test = _woop if two_level or pack.woop else moller_trumbore
 
     while not bool(done.all()):
         # what each live lane holds as the round begins
@@ -396,7 +476,7 @@ def walk_wide_plain(pack: WidePack, ray_pos, ray_dir, t_min, t_max,
                 if any_hit:
                     w = w[take]
                     best_t[w] = t_min[w]
-                    best_i[w] = 0 if two_level else tri[take]
+                    best_i[w] = 0 if two_level or pack.woop else tri[take]
                     done[w] = True
                     continue
                 # among equal t: the earlier instance, then the lower index

@@ -1,53 +1,48 @@
-// Ray queries over the streamed cluster BVH and its uniform grid, for Hopper.
+// Ray queries for Hopper: the streamed scenes' two queries, the two-level and
+// the cluster-BVH query, and one round of the cell wavefront.
 //
-// Five kernels, one ray per thread, 128 threads per block (two of them in
-// traverse_wide.cuh):
+// Five kernels, one ray per thread, 128 threads per block.  Four of them walk
+// wide BVHs with small leaves and live in traverse_wide.cuh, with its own
+// note on their design:
 //
-//  * intersect_stream_kernel<ANY_HIT> replaces the Pallas kernel
+//  * intersect_stream_kernel<ANY_HIT> (K2) replaces the Pallas kernel
 //    hydracore3_tpu/accel/traverse_stream.py:_kernel (wrapper
-//    intersect_stream).  It walks the skip-pointer BVH in DFS pre-order with
-//    no stack: on an AABB hit at an internal node go to i+1, otherwise (or
-//    after a leaf) go to skip.  Leaves are clusters of up to 64 triangles in
-//    Woop form.  Nearest-hit (t, tri, u, v) or any-hit (tri = 0, t = tmin
-//    on occlusion) in one kernel, chosen by the template flag.
-//  * intersect_march_kernel replaces hydracore3_tpu/accel/traverse_dda.py:
-//    _march_kernel (wrapper intersect_march).  It tests the outlier clusters
-//    first, then 3D-DDA-marches the grid front to back (integer cell steps
-//    across the nearest face, or a jump over the empty-space radius the grid
-//    stores per cell), testing each cell's clusters (AABB against the
-//    current best t, then their triangles), and stops once the best hit lies
-//    before the current cell's exit or the ray leaves the grid.  Every lane
-//    is marched to its end; a lane still live after the iteration cap is
-//    reported unresolved (none is expected).
-//  * intersect_tlas_kernel<ANY_HIT> and intersect_clusters_kernel<ANY_HIT>
-//    (the two-level and the cluster-BVH query) walk wide BVHs with small
-//    leaves near-first: traverse_wide.cuh, with its own note.
-//  * cell_pass_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
+//    intersect_stream): nearest hit (t, tri, u, v) or any-hit (tri = 0,
+//    t = tmin on occlusion) of the streamed scenes, by a near-first walk from
+//    node 0 of accel/wide_bvh.py's pack_wide_stream table.
+//  * intersect_march_kernel (K3) replaces hydracore3_tpu/accel/
+//    traverse_dda.py:_march_kernel (wrapper intersect_march): the outlier
+//    clusters first, then an integer 3D-DDA march of the grid front to back
+//    (a jump over the empty-space radius the grid stores per cell where it
+//    is 2 or more); at each cluster of a cell whose box the ray enters before
+//    its best t, a near-first walk of that cluster's subtree of the same
+//    table; it stops once the best hit lies before the current cell's exit
+//    or the ray leaves the grid.  Every lane is marched to its end; a lane
+//    still live at the iteration cap is reported unresolved (none is
+//    expected).
+//  * intersect_tlas_kernel<ANY_HIT> (K4) and intersect_clusters_kernel
+//    <ANY_HIT> (K5): the two-level and the cluster-BVH query.
+//
+// Here, beside the helpers they share (Ray, slab, Best, the counting
+// macros):
+//
+//  * cell_pass_kernel<ANY_HIT> (K6) replaces hydracore3_tpu/accel/
 //    traverse_dda.py:_cell_kernel (one round of intersect_dda): each lane
 //    brings the id of the grid cell it stands in (BIG_I = idle) and its
 //    running best; the kernel tests that cell's clusters (box against the
-//    best t, then the Woop rows), updates the best in place and flags the
+//    best t, then their 64-row Woop tiles of the contract table one by one,
+//    rays packed as [n, 8] rows), updates the best in place and flags the
 //    lane processed.  A lane's cell is always taken whole, so the TPU
-//    kernel's per-tile cell cap and cluster queue are gone.
-//
-// What bounds them on the card: each step is a dependent load (node, cell
-// list, cluster box, then 48 bytes per triangle) whose address comes from
-// the previous one, and the lanes of a warp diverge in path length.  The
-// scene's Woop rows (~12 MB for 215k triangles) fit the 50 MB L2, so the
-// loads are L2 latency rather than DRAM bandwidth.  The simple design keeps
-// every load a 16-byte vector load (nodes, boxes and triangle rows are
-// float4/int4 rows), culls a cluster by its box before touching its
-// triangles, loops over the real triangles of a leaf only, and relies on
-// the integrator's per-bounce coherence sort to keep neighbouring lanes on
-// similar paths.  No shared memory, tiles or queues.  cell_pass_kernel is
-// bound the same way.
+//    kernel's per-tile cell cap and cluster queue are gone.  It has not been
+//    redesigned yet: its clusters could be walked as K3 walks them.
 //
 // Semantics follow the JAX kernels: slab test with inv = 1/d where
 // |d| > 1e-20 else 1e30, tn = max(mins, tmin), tf = min(maxs, best_t), hit
 // if tn <= tf; Woop test t = -po_z/pd_z, u = po_x + t pd_x,
 // v = po_y + t pd_y, accepted when u >= 0, v >= 0, u + v <= 1,
-// tmin < t < best_t (all-zero padding rows give NaN and are rejected); ties
-// keep the lowest index within a cluster and the first cluster visited.
+// tmin < t < best_t (all-zero padding rows give NaN and are rejected); among
+// equal t the lowest padded index wins (K2, K3: by comparison; K6: the
+// first cluster visited, the lowest index within a cluster).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,7 +120,7 @@ __device__ unsigned long long g_counts[4];
 #define HC3_FLUSH
 #endif
 
-// Woop test of triangles [base, base + count) (rows of 3 float4).
+// Woop test of triangles [base, base + count) (rows of 3 float4), for K6.
 // Returns true on the first valid triangle under ANY_HIT.
 template <bool ANY_HIT>
 __device__ __forceinline__ bool cluster(const Ray& r,
@@ -160,146 +155,7 @@ __device__ __forceinline__ bool cluster(const Ray& r,
   return false;
 }
 
-template <bool ANY_HIT>
-__global__ void __launch_bounds__(BLOCK)
-intersect_stream_kernel(const float4* __restrict__ nodes_f,
-                        const int4* __restrict__ nodes_i,
-                        const float4* __restrict__ woop,
-                        const float4* __restrict__ rays, int n,
-                        float* __restrict__ out_t, int* __restrict__ out_tri,
-                        float* __restrict__ out_u, float* __restrict__ out_v) {
-  int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(rays, i);
-  Best best{r.tmax, 0.0f, 0.0f, -1};
-  HC3_COUNTS;
-  int node = 0;
-  while (node >= 0) {
-    int4 ni = nodes_i[node];
-    HC3_TICK(slab);
-    bool hit = slab(r, nodes_f[2 * node], nodes_f[2 * node + 1], best.t);
-    if (hit && ni.y >= 0) {
-      if (cluster<ANY_HIT>(r, woop, ni.y * TBK, ni.z,
-                           best HC3_COUNTS_ARG))
-        break;
-    }
-    node = (hit && ni.y < 0) ? node + 1 : ni.x;
-  }
-  out_t[i] = best.t;
-  out_tri[i] = best.tri;
-  out_u[i] = best.u;
-  out_v[i] = best.v;
-  HC3_FLUSH;
-}
-
-__global__ void __launch_bounds__(BLOCK)
-intersect_march_kernel(const int4* __restrict__ cell_tab,
-                       const int4* __restrict__ cell_cl,
-                       const float4* __restrict__ cl_aabb,
-                       const int* __restrict__ cl_count,
-                       const int4* __restrict__ outliers, int n_outliers,
-                       const float4* __restrict__ woop,
-                       const float4* __restrict__ rays, int n,
-                       float lo0, float lo1, float lo2,
-                       float h0, float h1, float h2,
-                       int d0, int d1, int d2, int max_iter,
-                       float* __restrict__ out_t, int* __restrict__ out_tri,
-                       float* __restrict__ out_u, float* __restrict__ out_v,
-                       int* __restrict__ out_un) {
-  int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(rays, i);
-  Best best{r.tmax, 0.0f, 0.0f, -1};
-  HC3_COUNTS;
-
-  auto visit = [&](int slot) {
-    HC3_TICK(slab);
-    if (slab(r, cl_aabb[2 * slot], cl_aabb[2 * slot + 1], best.t))
-      cluster<false>(r, woop, slot * TBK, cl_count[slot],
-                     best HC3_COUNTS_ARG);
-  };
-  for (int k = 0; k < n_outliers; ++k) visit(outliers[k].x);
-
-  // entry into the grid box lo + h * dims
-  float ax0 = (lo0 - r.ox) * r.ix, bx0 = (lo0 + h0 * d0 - r.ox) * r.ix;
-  float ay0 = (lo1 - r.oy) * r.iy, by0 = (lo1 + h1 * d1 - r.oy) * r.iy;
-  float az0 = (lo2 - r.oz) * r.iz, bz0 = (lo2 + h2 * d2 - r.oz) * r.iz;
-  float tn_box = fmaxf(fmaxf(fminf(ax0, bx0), fminf(ay0, by0)),
-                       fmaxf(fminf(az0, bz0), r.tmin));
-  float tf_box = fminf(fminf(fmaxf(ax0, bx0), fmaxf(ay0, by0)),
-                       fmaxf(az0, bz0));
-  bool done = (tn_box > tf_box) || (tf_box < r.tmin) || !(r.tmax > r.tmin);
-  float t_cell_min = fminf(fminf(h0 * fabsf(r.ix), h1 * fabsf(r.iy)),
-                           h2 * fabsf(r.iz));
-  float t_cur = tn_box;
-  int cx = 0, cy = 0, cz = 0;
-  // the cell holding the point at t, clamped into the grid
-  auto locate = [&](float t) {
-    cx = min(max((int)floorf((r.ox + r.dx * t - lo0) / h0), 0), d0 - 1);
-    cy = min(max((int)floorf((r.oy + r.dy * t - lo1) / h1), 0), d1 - 1);
-    cz = min(max((int)floorf((r.oz + r.dz * t - lo2) / h2), 0), d2 - 1);
-  };
-  if (!done) locate(t_cur);
-  for (int it = 0; !done && it < max_iter; ++it) {
-    int4 ct = cell_tab[(cx * d1 + cy) * d2 + cz];
-    HC3_TICK(cell);
-    for (int j = 0; j < ct.y; ++j) visit(cell_cl[ct.x + j].x);
-    float tx = fabsf(r.dx) > 1e-20f
-                   ? (lo0 + (float)(cx + (r.dx > 0.0f)) * h0 - r.ox) * r.ix
-                   : 1e30f;
-    float ty = fabsf(r.dy) > 1e-20f
-                   ? (lo1 + (float)(cy + (r.dy > 0.0f)) * h1 - r.oy) * r.iy
-                   : 1e30f;
-    float tz = fabsf(r.dz) > 1e-20f
-                   ? (lo2 + (float)(cz + (r.dz > 0.0f)) * h2 - r.oz) * r.iz
-                   : 1e30f;
-    float t_exit = fminf(fminf(tx, ty), tz);
-    if (best.t <= t_exit) {          // the hit lies in the visited prefix
-      done = true;
-      break;
-    }
-    // empty-space skip over the cell's chebyshev-r empty ball (r >= 2),
-    // else one integer DDA step across the nearest cell face.  The integer
-    // step always advances, even where rounding puts a face behind t_cur
-    // (a ray starting on a cell boundary).
-    float t_skip = t_cur + (float)(ct.z - 1) * t_cell_min;
-    if (ct.z > 1 && t_skip > t_exit) {
-      t_cur = t_skip;
-      if (t_cur >= tf_box) {
-        done = true;
-        break;
-      }
-      locate(t_cur);
-    } else {
-      t_cur = fmaxf(t_exit, t_cur);
-      bool out;
-      if (tx <= ty && tx <= tz) {
-        cx += r.dx > 0.0f ? 1 : -1;
-        out = cx < 0 || cx >= d0;
-      } else if (ty <= tz) {
-        cy += r.dy > 0.0f ? 1 : -1;
-        out = cy < 0 || cy >= d1;
-      } else {
-        cz += r.dz > 0.0f ? 1 : -1;
-        out = cz < 0 || cz >= d2;
-      }
-      if (out) {                      // left the grid
-        done = true;
-        break;
-      }
-    }
-    if (t_cur >= r.tmax) done = true;
-  }
-  out_t[i] = best.t;
-  out_tri[i] = best.tri;
-  out_u[i] = best.u;
-  out_v[i] = best.v;
-  out_un[i] = done ? 0 : 1;
-  HC3_FLUSH;
-}
-
-
-// ---- the cluster-BVH and two-level queries over wide BVHs -------------------
+// ---- the queries over wide BVHs: K2, K3, K4, K5 ---------------------------
 
 #include "traverse_wide.cuh"
 
@@ -399,37 +255,56 @@ extern "C" int hc3_traverse_attrs(int k, int* out) {
   return 0;
 }
 
-extern "C" int hc3_intersect_stream(const void* nodes_f, const void* nodes_i,
-                                    const void* woop, const void* rays, int n,
-                                    int any_hit, void* out_t, void* out_tri,
-                                    void* out_u, void* out_v, void* stream) {
+// nodes / rows / index: accel/wide_bvh.py's pack_wide_stream table, whose
+// walk from node 0 needs `stack` entries per ray (refused beyond WIDE_STACK);
+// the rays as the caller holds them (pos [n, 3], dir [n, 3], tmin [n],
+// tmax [n], f32), tmax capped at tmax_cap; out_tri is int64
+extern "C" int hc3_intersect_stream(
+    const void* nodes, const void* rows, const void* index, const void* pos,
+    const void* dir, const void* tmin, const void* tmax, float tmax_cap,
+    int n, int any_hit, int stack, void* out_t, void* out_tri, void* out_u,
+    void* out_v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stack < 0 || stack > WIDE_STACK)
+    return static_cast<int>(cudaErrorInvalidValue);
   HC3_LAUNCH(intersect_stream_kernel, any_hit,
-             static_cast<const float4*>(nodes_f),
-             static_cast<const int4*>(nodes_i),
-             static_cast<const float4*>(woop),
-             static_cast<const float4*>(rays), n, static_cast<float*>(out_t),
-             static_cast<int*>(out_tri), static_cast<float*>(out_u),
+             static_cast<const float4*>(nodes),
+             static_cast<const float4*>(rows), static_cast<const int*>(index),
+             static_cast<const float*>(pos), static_cast<const float*>(dir),
+             static_cast<const float*>(tmin), static_cast<const float*>(tmax),
+             tmax_cap, n, static_cast<float*>(out_t),
+             static_cast<long long*>(out_tri), static_cast<float*>(out_u),
              static_cast<float*>(out_v));
   return static_cast<int>(cudaGetLastError());
 }
 
+// the grid tables (cell_tab, cell_cl, cl_aabb, outliers) of
+// accel/traverse_dda.py's GridPack; nodes / rows / index / cl_root: the
+// pack_wide_stream table, whose walk from a cluster's root needs `cl_stack`
+// entries (refused beyond MARCH_STACK); the rays as hc3_intersect_stream
+// takes them; out_tri is int64, out_un int32
 extern "C" int hc3_intersect_march(
     const void* cell_tab, const void* cell_cl, const void* cl_aabb,
-    const void* cl_count, const void* outliers, int n_outliers,
-    const void* woop, const void* rays, int n, float lo0, float lo1, float lo2,
-    float h0, float h1, float h2, int d0, int d1, int d2, int max_iter,
-    void* out_t, void* out_tri, void* out_u, void* out_v,
-    void* out_un, void* stream) {
+    const void* outliers, int n_outliers, const void* nodes,
+    const void* rows, const void* index, const void* cl_root, int cl_stack,
+    const void* pos, const void* dir, const void* tmin, const void* tmax,
+    float tmax_cap, int n, float lo0, float lo1, float lo2, float h0,
+    float h1, float h2, int d0, int d1, int d2, int max_iter, void* out_t,
+    void* out_tri, void* out_u, void* out_v, void* out_un, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cl_stack < 0 || cl_stack > MARCH_STACK)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     intersect_march_kernel<<<blocks(n), BLOCK, 0, s>>>(
         static_cast<const int4*>(cell_tab), static_cast<const int4*>(cell_cl),
-        static_cast<const float4*>(cl_aabb), static_cast<const int*>(cl_count),
+        static_cast<const float4*>(cl_aabb),
         static_cast<const int4*>(outliers), n_outliers,
-        static_cast<const float4*>(woop), static_cast<const float4*>(rays), n,
-        lo0, lo1, lo2, h0, h1, h2, d0, d1, d2, max_iter,
-        static_cast<float*>(out_t), static_cast<int*>(out_tri),
+        static_cast<const float4*>(nodes), static_cast<const float4*>(rows),
+        static_cast<const int*>(index), static_cast<const int*>(cl_root),
+        static_cast<const float*>(pos), static_cast<const float*>(dir),
+        static_cast<const float*>(tmin), static_cast<const float*>(tmax),
+        tmax_cap, n, lo0, lo1, lo2, h0, h1, h2, d0, d1, d2, max_iter,
+        static_cast<float*>(out_t), static_cast<long long*>(out_tri),
         static_cast<float*>(out_u), static_cast<float*>(out_v),
         static_cast<int*>(out_un));
   }

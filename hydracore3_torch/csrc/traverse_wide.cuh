@@ -1,13 +1,27 @@
-// Ray queries over wide BVHs with small leaves: the cluster-BVH query and the
-// two-level (TLAS) query, designed for Hopper.  Included by traverse.cu, whose
-// Ray, safe_inv, Best, BLOCK and counting macros it uses.
+// Ray queries over wide BVHs with small leaves, designed for Hopper: the
+// streamed scenes' any-hit / nearest walk (K2) and grid march (K3), the
+// cluster-BVH query (K5) and the two-level (TLAS) query (K4).  Included by
+// traverse.cu, whose Ray, safe_inv, slab, Best, BLOCK and counting macros it
+// uses.
 //
-//  * intersect_clusters_kernel<ANY_HIT> replaces the Pallas kernel
-//    hydracore3_tpu/accel/traverse_pallas.py:_kernel (wrapper
-//    intersect_clusters): nearest hit (t, tri, u, v) or any-hit over (v0, e1,
-//    e2) rows tested with Moller-Trumbore (pvec = d x e2, det = pvec . e1,
-//    |det| > 1e-12; t_max is not clamped here).  tri is the contract's
-//    unpadded leaf-order index, read from the fine order's map.
+//  * intersect_stream_kernel<ANY_HIT> replaces the Pallas kernel
+//    hydracore3_tpu/accel/traverse_stream.py:_kernel (wrapper
+//    intersect_stream): nearest hit (t, tri, u, v) or any-hit over Woop rows,
+//    walking accel/wide_bvh.py's pack_wide_stream table from node 0 (the
+//    collapsed stream BVH, whose leaves lead to each cluster's own subtree).
+//    tri is the contract's padded leaf-order slot; any-hit ends the walk at
+//    the first valid triangle with tri = 0, t = tmin.
+//  * intersect_march_kernel replaces hydracore3_tpu/accel/traverse_dda.py:
+//    _march_kernel (wrapper intersect_march): outliers first, then the
+//    integer 3D-DDA over the grid; at a cluster whose box (inclusive, against
+//    the best t) the ray enters, a walk of that cluster's subtree of the same
+//    table from cl_root[slot], with a stack of MARCH_STACK entries.
+//  * intersect_clusters_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
+//    traverse_pallas.py:_kernel (wrapper intersect_clusters): nearest hit
+//    (t, tri, u, v) or any-hit over (v0, e1, e2) rows tested with
+//    Moller-Trumbore (pvec = d x e2, det = pvec . e1, |det| > 1e-12; t_max is
+//    not clamped here).  tri is the contract's unpadded leaf-order index,
+//    read from the fine order's map.
 //  * intersect_tlas_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
 //    traverse_tlas.py:_kernel (wrapper intersect_stream_tlas): the world-space
 //    ray walks a TLAS over instance boxes; at an instance it is taken into
@@ -21,15 +35,17 @@
 // What bounds them on the card.  A ray query has no matrix product and its
 // loads are 16-128-byte records at data-dependent addresses, so tensor cores
 // and TMA have no work here; the tables fit L2 (7.3 MB of triangle rows for a
-// 152k-triangle city, under 1 MB for the instanced city), so it is not DRAM
-// bandwidth either.  Time goes to the latency of dependent L2 loads, to
-// tests that a better order would not have made and, once those are gone, to
-// the arithmetic of the tests that remain.  The TPU kernels test a
-// 64-triangle tile at once, and a thread walking their tables in the fixed
-// order of a stackless skip-pointer walk did 399 triangle and 88 box tests
-// per camera ray on the 152k-triangle city (two-level: 176, 65 and 4.8
-// instances entered); this walk does 4.0 and 34 (two-level: 5.3, 40 and
-// 1.45), counted by the -DHC3_COUNT build.  The design, one ray per thread:
+// 152k-triangle city, 10.3 MB of Woop rows and 4.1 MB of nodes for the
+// 215k-triangle bench city), so it is not DRAM bandwidth either.  Time goes to
+// the latency of dependent L2 loads, to tests that a better order would not
+// have made and, once those are gone, to the arithmetic of the tests that
+// remain.  The TPU kernels test a 64-triangle tile at once, and a thread
+// walking their tables in the fixed order of a stackless skip-pointer walk,
+// or testing every row of each 64-row cluster the march met, did 399 triangle
+// and 88 box tests per camera ray on the 152k-triangle city (two-level: 176,
+// 65 and 4.8 instances entered; the bench city's march: 159 and 21); these
+// walks do a few triangle tests a ray, counted by the -DHC3_COUNT build.  The
+// design, one ray per thread:
 //  * nodes of 4 children over leaves of at most 4 triangles (accel/
 //    wide_bvh.py builds them from the contract tables).  A node is one aligned
 //    128-byte record, children's boxes as six float4 rows and one int4 of
@@ -52,12 +68,10 @@
 //  * the kernels read the caller's ray arrays and write int64 indices, so
 //    the wrapper launches nothing else (packing the rays and widening the
 //    indices took as long as the walk itself).
-// On an H100 a query of 1,048,576 rays takes 0.09-0.17 ms (5.1 and 2.2 ms for
-// the camera rays with the walk this replaces); entering the children in
-// stored order instead of nearest first costs 5.7x and 3.8x on camera rays.
 
 constexpr int WIDE_EMPTY = static_cast<int>(0x80000000u);  // no child
 constexpr int WIDE_STACK = 64;   // entries per ray at most
+constexpr int MARCH_STACK = 16;  // entries per ray in one cluster's subtree
 
 struct __align__(8) Entry {
   int ref;
@@ -153,6 +167,216 @@ __device__ __forceinline__ bool walk_wide(const float4* __restrict__ nodes,
     }
     if (cur == WIDE_EMPTY) return false;
   }
+}
+
+// ---- Woop rows: the test, and the streamed scenes' leaf ---------------------
+
+// t, u, v of ray r against one triangle's Woop rows w[0..2], the arithmetic
+// of traverse_stream.intersect_plain; true when the hit lies inside the
+// triangle (u >= 0, v >= 0, u + v <= 1) beyond r.tmin.  An all-zero row gives
+// t = NaN and is rejected.
+__device__ __forceinline__ bool woop_test(const Ray& r,
+                                          const float4* __restrict__ w,
+                                          float& t, float& u, float& v) {
+  float4 wx = w[0], wy = w[1], wz = w[2];
+  float po_z = wz.x * r.ox + wz.y * r.oy + wz.z * r.oz + wz.w;
+  float pd_z = wz.x * r.dx + wz.y * r.dy + wz.z * r.dz;
+  t = -po_z / pd_z;
+  u = (wx.x * r.ox + wx.y * r.oy + wx.z * r.oz + wx.w)
+      + t * (wx.x * r.dx + wx.y * r.dy + wx.z * r.dz);
+  v = (wy.x * r.ox + wy.y * r.oy + wy.z * r.oz + wy.w)
+      + t * (wy.x * r.dx + wy.y * r.dy + wy.z * r.dz);
+  return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > r.tmin);
+}
+
+// A leaf of pack_wide_stream's table (K2, K3).  Nearest: a hit is taken when
+// t < best t, or at equal t with the lower padded slot.  Any-hit: the first
+// valid triangle ends the query with tri = 0, t = tmin (returns true).
+template <bool ANY_HIT>
+__device__ __forceinline__ bool woop_leaf(const Ray& r,
+                                          const float4* __restrict__ rows,
+                                          const int* __restrict__ index,
+                                          int ref, Best& best HC3_COUNTS_PARAM) {
+  int code = ~ref;
+  int off = code >> 3, count = code & 7;
+  for (int k = 0; k < count; ++k) {
+    HC3_TICK(tri);
+    float t, u, v;
+    if (!woop_test(r, rows + 3 * (off + k), t, u, v)) continue;
+    if (ANY_HIT) {
+      if (t < best.t) {
+        best.t = r.tmin;
+        best.tri = 0;
+        return true;
+      }
+      continue;
+    }
+    if (!(t <= best.t)) continue;
+    int tri = index[off + k];
+    if (t < best.t || (best.tri >= 0 && tri < best.tri)) {
+      best.t = t;
+      best.tri = tri;
+      best.u = u;
+      best.v = v;
+    }
+  }
+  return false;
+}
+
+// ---- the streamed scenes: any-hit / nearest from the root (K2) ------------
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(BLOCK)
+intersect_stream_kernel(const float4* __restrict__ nodes,
+                        const float4* __restrict__ rows,
+                        const int* __restrict__ index,
+                        const float* __restrict__ pos,
+                        const float* __restrict__ dir,
+                        const float* __restrict__ tmin,
+                        const float* __restrict__ tmax, float tmax_cap,
+                        int n, float* __restrict__ out_t,
+                        long long* __restrict__ out_tri,
+                        float* __restrict__ out_u,
+                        float* __restrict__ out_v) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray_soa(pos, dir, tmin, tmax, tmax_cap, i);
+  Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
+  Entry wide_stack[WIDE_STACK];
+  auto leaf = [&](int ref) -> bool {
+    return woop_leaf<ANY_HIT>(r, rows, index, ref, best HC3_COUNTS_ARG);
+  };
+  int sp = 0;
+  if (r.tmax > r.tmin)
+    walk_wide(nodes, r, 0, sp, best, leaf, wide_stack HC3_COUNTS_ARG);
+  out_t[i] = best.t;
+  out_tri[i] = best.tri;
+  out_u[i] = best.u;
+  out_v[i] = best.v;
+  HC3_FLUSH;
+}
+
+// ---- the streamed scenes' nearest hit by grid march (K3) ------------------
+
+__global__ void __launch_bounds__(BLOCK)
+intersect_march_kernel(const int4* __restrict__ cell_tab,
+                       const int4* __restrict__ cell_cl,
+                       const float4* __restrict__ cl_aabb,
+                       const int4* __restrict__ outliers, int n_outliers,
+                       const float4* __restrict__ nodes,
+                       const float4* __restrict__ rows,
+                       const int* __restrict__ index,
+                       const int* __restrict__ cl_root,
+                       const float* __restrict__ pos,
+                       const float* __restrict__ dir,
+                       const float* __restrict__ tmin,
+                       const float* __restrict__ tmax, float tmax_cap, int n,
+                       float lo0, float lo1, float lo2,
+                       float h0, float h1, float h2,
+                       int d0, int d1, int d2, int max_iter,
+                       float* __restrict__ out_t,
+                       long long* __restrict__ out_tri,
+                       float* __restrict__ out_u, float* __restrict__ out_v,
+                       int* __restrict__ out_un) {
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray_soa(pos, dir, tmin, tmax, tmax_cap, i);
+  Best best{r.tmax, 0.0f, 0.0f, -1};
+  HC3_COUNTS;
+  Entry march_stack[MARCH_STACK];
+  auto leaf = [&](int ref) -> bool {
+    return woop_leaf<false>(r, rows, index, ref, best HC3_COUNTS_ARG);
+  };
+  // a cluster: its box against the best t, then its subtree near-first
+  auto visit = [&](int slot) {
+    HC3_TICK(slab);
+    if (slab(r, cl_aabb[2 * slot], cl_aabb[2 * slot + 1], best.t)) {
+      int sp = 0;
+      walk_wide(nodes, r, cl_root[slot], sp, best, leaf,
+                march_stack HC3_COUNTS_ARG);
+    }
+  };
+  bool live = r.tmax > r.tmin;
+  if (live)
+    for (int k = 0; k < n_outliers; ++k) visit(outliers[k].x);
+
+  // entry into the grid box lo + h * dims
+  float ax0 = (lo0 - r.ox) * r.ix, bx0 = (lo0 + h0 * d0 - r.ox) * r.ix;
+  float ay0 = (lo1 - r.oy) * r.iy, by0 = (lo1 + h1 * d1 - r.oy) * r.iy;
+  float az0 = (lo2 - r.oz) * r.iz, bz0 = (lo2 + h2 * d2 - r.oz) * r.iz;
+  float tn_box = fmaxf(fmaxf(fminf(ax0, bx0), fminf(ay0, by0)),
+                       fmaxf(fminf(az0, bz0), r.tmin));
+  float tf_box = fminf(fminf(fmaxf(ax0, bx0), fmaxf(ay0, by0)),
+                       fmaxf(az0, bz0));
+  bool done = (tn_box > tf_box) || (tf_box < r.tmin) || !live;
+  float t_cell_min = fminf(fminf(h0 * fabsf(r.ix), h1 * fabsf(r.iy)),
+                           h2 * fabsf(r.iz));
+  float t_cur = tn_box;
+  int cx = 0, cy = 0, cz = 0;
+  // the cell holding the point at t, clamped into the grid
+  auto locate = [&](float t) {
+    cx = min(max((int)floorf((r.ox + r.dx * t - lo0) / h0), 0), d0 - 1);
+    cy = min(max((int)floorf((r.oy + r.dy * t - lo1) / h1), 0), d1 - 1);
+    cz = min(max((int)floorf((r.oz + r.dz * t - lo2) / h2), 0), d2 - 1);
+  };
+  if (!done) locate(t_cur);
+  for (int it = 0; !done && it < max_iter; ++it) {
+    int4 ct = cell_tab[(cx * d1 + cy) * d2 + cz];
+    HC3_TICK(cell);
+    for (int j = 0; j < ct.y; ++j) visit(cell_cl[ct.x + j].x);
+    float tx = fabsf(r.dx) > 1e-20f
+                   ? (lo0 + (float)(cx + (r.dx > 0.0f)) * h0 - r.ox) * r.ix
+                   : 1e30f;
+    float ty = fabsf(r.dy) > 1e-20f
+                   ? (lo1 + (float)(cy + (r.dy > 0.0f)) * h1 - r.oy) * r.iy
+                   : 1e30f;
+    float tz = fabsf(r.dz) > 1e-20f
+                   ? (lo2 + (float)(cz + (r.dz > 0.0f)) * h2 - r.oz) * r.iz
+                   : 1e30f;
+    float t_exit = fminf(fminf(tx, ty), tz);
+    if (best.t <= t_exit) {          // the hit lies in the visited prefix
+      done = true;
+      break;
+    }
+    // empty-space skip over the cell's chebyshev-r empty ball (r >= 2),
+    // else one integer DDA step across the nearest cell face.  The integer
+    // step always advances, even where rounding puts a face behind t_cur
+    // (a ray starting on a cell boundary).
+    float t_skip = t_cur + (float)(ct.z - 1) * t_cell_min;
+    if (ct.z > 1 && t_skip > t_exit) {
+      t_cur = t_skip;
+      if (t_cur >= tf_box) {
+        done = true;
+        break;
+      }
+      locate(t_cur);
+    } else {
+      t_cur = fmaxf(t_exit, t_cur);
+      bool out;
+      if (tx <= ty && tx <= tz) {
+        cx += r.dx > 0.0f ? 1 : -1;
+        out = cx < 0 || cx >= d0;
+      } else if (ty <= tz) {
+        cy += r.dy > 0.0f ? 1 : -1;
+        out = cy < 0 || cy >= d1;
+      } else {
+        cz += r.dz > 0.0f ? 1 : -1;
+        out = cz < 0 || cz >= d2;
+      }
+      if (out) {                      // left the grid
+        done = true;
+        break;
+      }
+    }
+    if (t_cur >= r.tmax) done = true;
+  }
+  out_t[i] = best.t;
+  out_tri[i] = best.tri;
+  out_u[i] = best.u;
+  out_v[i] = best.v;
+  out_un[i] = done ? 0 : 1;
+  HC3_FLUSH;
 }
 
 // ---- cluster BVH: (v0, e1, e2) rows, Moller-Trumbore ----------------------
@@ -282,17 +506,9 @@ intersect_tlas_kernel(const float4* __restrict__ nodes,
       int off = code >> 3, count = code & 7;
       for (int k = 0; k < count; ++k) {
         HC3_TICK(tri);
-        const float4* w = rows + 3 * (off + k);
-        float4 wx = w[0], wy = w[1], wz = w[2];
-        float po_z = wz.x * o.ox + wz.y * o.oy + wz.z * o.oz + wz.w;
-        float pd_z = wz.x * o.dx + wz.y * o.dy + wz.z * o.dz;
-        float t = -po_z / pd_z;
-        float u = (wx.x * o.ox + wx.y * o.oy + wx.z * o.oz + wx.w)
-                  + t * (wx.x * o.dx + wx.y * o.dy + wx.z * o.dz);
-        float v = (wy.x * o.ox + wy.y * o.oy + wy.z * o.oz + wy.w)
-                  + t * (wy.x * o.dx + wy.y * o.dy + wy.z * o.dz);
-        bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                  (t > r.tmin) && (ANY_HIT ? t < best.t : t <= best.t);
+        float t, u, v;
+        bool ok = woop_test(o, rows + 3 * (off + k), t, u, v) &&
+                  (ANY_HIT ? t < best.t : t <= best.t);
         if (ok) {
           if (ANY_HIT) {
             best.t = r.tmin;

@@ -173,12 +173,12 @@ def nearest_hit(scene, ray_pos, ray_dir, t_min, t_max):
     Returns (t, tri, u, v)."""
     pt, ptri, pu, pv, un = TDD.intersect_march(
         scene.st_grid, scene.st_woop, ray_pos, ray_dir, t_min, t_max,
-        with_unresolved=True)
+        with_unresolved=True, wide=scene.st_wide)
     sel = torch.nonzero(un).squeeze(1)
     if sel.numel() > 0:
         ft, ftri, fu, fv = TST.intersect_stream(
             scene.st_nodes_f, scene.st_nodes_i, scene.st_woop, ray_pos[sel],
-            ray_dir[sel], t_min[sel], t_max[sel])
+            ray_dir[sel], t_min[sel], t_max[sel], wide=scene.st_wide)
         pt, ptri, pu, pv = (a.index_put((sel,), b) for a, b in
                             ((pt, ft), (ptri, ftri), (pu, fu), (pv, fv)))
     return pt, ptri, pu, pv
@@ -351,7 +351,7 @@ def shadow_occluded(scene, rays: ShadowRays):
     perm, *query = sorted_shadow_query(scene.st_grid, rays)
     _, stri, _, _ = TST.intersect_stream(
         scene.st_nodes_f, scene.st_nodes_i, scene.st_woop, *query,
-        any_hit=True)
+        any_hit=True, wide=scene.st_wide)
     occluded = torch.empty_like(rays.need_trace)
     occluded[perm] = stri >= 0
     return occluded

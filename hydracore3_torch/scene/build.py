@@ -261,6 +261,9 @@ class Scene:
     st_nodes_i: Optional[torch.Tensor]      # [M, 4] i32
     st_woop: Optional[torch.Tensor]         # [C * 64, 12] f32
     st_grid: object               # accel.traverse_dda.GridPack or None
+    # what the card's streamed kernels (K2, K3) walk, derived from st_*:
+    # accel.wide_bvh.WidePack (pack_wide_stream) or None
+    st_wide: object = None
     # mid-size soups: the unpadded cluster BVH (meta.use_pallas), else None
     # (the node tables stay on the host: nothing on a card reads them)
     cl_nodes_f: Optional[torch.Tensor] = None   # [M, 8] f32
@@ -738,7 +741,7 @@ def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
         accel == 'stream' or len(soup_v0) > TPL.VMEM_TRI_LIMIT)
     use_pallas = (not use_stream_tlas and not use_stream
                   and len(soup_v0) >= SMALL_SCENE_TRIS)
-    stream = clusters = cl_wide = None
+    stream = clusters = cl_wide = st_wide = None
     if use_stream:
         # streamed cluster BVH: padded leaf-cluster order
         cbvh = build_bvh.build(soup_v0, soup_e1, soup_e2, max_leaf=TST.TBK)
@@ -756,6 +759,8 @@ def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
             a[pad_rows] = 0.0
         soup = [a[sel] for a in soup]
         soup[3][pad_rows] = 0.0
+        st_wide = WB.pack_wide_stream(nodes_f, nodes_i, woop, soup_v0,
+                                      soup_e1, soup_e2)
     elif not use_stream_tlas:
         # mid-size: the soup in the cluster BVH's leaf order, unpadded;
         # small: in the leaf order of a 4-triangle-leaf BVH
@@ -826,6 +831,7 @@ def build_scene(desc: SceneDesc, device=None, accel: str = 'auto'
         st_nodes_i=None if stream is None else dev(stream[1]),
         st_woop=None if stream is None else dev(stream[2]),
         st_grid=None if stream is None else stream[3].to(device),
+        st_wide=None if st_wide is None else st_wide.to(device),
         cl_nodes_f=None if clusters is None else torch.as_tensor(clusters[0]),
         cl_nodes_i=None if clusters is None else torch.as_tensor(clusters[1]),
         cl_tris12=None if clusters is None else dev(clusters[2]),

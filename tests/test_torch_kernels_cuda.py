@@ -8,7 +8,9 @@ import).  Agreement bars: the ray-query kernels' (K2-K6) hit masks equal on
 >= 99.9% of rays, t within rtol 2e-4 where both hit (nvcc contracts the Woop
 and Moller-Trumbore arithmetic into FMAs, so equal-t ties and knife-edge
 lanes may differ), the two-level kernel's instance ids equal wherever the
-triangle is; the K1 megakernel entry
+triangle is; the wide-BVH kernels (K2-K5) return the triangle that
+``wide_bvh.walk_wide_plain``, their walk in plain torch, returns on >= 99.9%
+of both-hit lanes; the K1 megakernel entry
 points on every lane: RNG, flags and counts equal and the f32 rows within
 ``megakernel.KERNEL_TOL`` (built without FMA contraction; rsqrtf, sinf and
 cosf are the card's, as in torch's own CUDA ops).
@@ -51,11 +53,21 @@ def random_rays(rng, n, box=6.0):
     return pos, d
 
 
-def port_pack(v0, e1, e2):
-    bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
-    o = bvh.order
-    nf, ni, woop, op = TTS.pack_stream_bvh(bvh, v0[o], e1[o], e2[o])
-    return nf, ni, woop, op, TTD.pack_grid(nf, ni)
+def port_pack(v0, e1, e2, bvh=None):
+    """The streamed contract tables of a soup (or of ``bvh`` over the soup
+    in its leaf order), its grid, the kernels' table
+    (``wide_bvh.pack_wide_stream``) and the soup in padded slot order
+    (padding zero)."""
+    if bvh is None:
+        bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
+        o = bvh.order
+        v0, e1, e2 = v0[o], e1[o], e2[o]
+    nf, ni, woop, op = TTS.pack_stream_bvh(bvh, v0, e1, e2)
+    sel = np.maximum(op, 0)
+    soup = tuple(np.where((op < 0)[:, None], 0.0, a[sel]).astype(np.float32)
+                 for a in (v0, e1, e2))
+    return (nf, ni, woop, op, TTD.pack_grid(nf, ni),
+            TWB.pack_wide_stream(nf, ni, woop, *soup), soup)
 
 
 @pytest.fixture
@@ -80,34 +92,56 @@ def _agree(kernel, plain, any_hit=False):
 
 
 def _soup(cuda, seed=31, n_tris=1500, n_rays=4096):
+    """The streamed tables of a random soup on the card (and the kernels'
+    table on the host as well), and random rays."""
     rng = np.random.default_rng(seed)
-    nf, ni, woop, _, grid = port_pack(*random_scene(rng, n_tris))
+    nf, ni, woop, _, grid, wide, _ = port_pack(*random_scene(rng, n_tris))
     pos, d = random_rays(rng, n_rays)
     dev = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
-    return (dev(nf), dev(ni), dev(woop), grid.to(cuda), dev(pos), dev(d))
+    return (dev(nf), dev(ni), dev(woop), grid.to(cuda), dev(pos), dev(d),
+            wide, wide.to(cuda))
+
+
+def _same_as_walk(k, walk, any_hit):
+    """The kernel against the same walk in plain torch, lane for lane."""
+    kt, ktri = k[0].cpu(), k[1].cpu()
+    assert ((ktri >= 0) == (walk[1] >= 0)).float().mean() >= 0.999
+    both = (ktri >= 0) & (walk[1] >= 0)
+    assert (ktri == walk[1])[both].float().mean() >= 0.999
+    if any_hit:
+        assert (ktri[ktri >= 0] == 0).all()
 
 
 @pytest.mark.parametrize('any_hit', [False, True])
 def test_stream_kernel_matches_plain(cuda, any_hit):
-    nf, ni, woop, _, pos, d = _soup(cuda)
+    nf, ni, woop, _, pos, d, wide_cpu, wide = _soup(cuda)
     n = pos.shape[0]
     tmin = torch.zeros(n, device=cuda)
-    tmax = torch.full((n,), 4.0 if any_hit else 1e30, device=cuda)
+    tmax = torch.full((n,), 4.0 if any_hit else IPT_FLT_MAX, device=cuda)
+    tmax[::11] = 0.0                                   # dead lanes
     before = TTS.intersect_stream.launches
-    k = TTS.intersect_stream(nf, ni, woop, pos, d, tmin, tmax, any_hit)
+    # the card path reads the kernels' table alone
+    k = TTS.intersect_stream(None, None, None, pos, d, tmin, tmax, any_hit,
+                             wide=wide)
     torch.cuda.synchronize()
     assert TTS.intersect_stream.launches == before + 1
-    p = TTS.intersect_plain(woop, pos, d, tmin, torch.clamp(
-        tmax, max=0.99 * TTS.FLT_MAX), any_hit)
+    assert k[1].dtype == torch.int64
+    tmax_c = torch.clamp(tmax, max=TTS.T_MAX_CAP)
+    p = TTS.intersect_plain(woop, pos, d, tmin, tmax_c, any_hit)
     hit_eq, t_eq, both = _agree(k, p, any_hit)
     assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
-    assert both > 0
+    assert both > 100
+    assert (k[1][::11] == -1).all()
     if any_hit:
         assert (k[0][k[1] >= 0] == 0.0).all()
+    _same_as_walk(k, TWB.walk_wide_plain(
+        wide_cpu, pos.cpu(), d.cpu(), tmin.cpu(), tmax_c.cpu(), any_hit),
+        any_hit)
 
 
 def test_march_kernel_matches_plain(cuda):
-    _, _, woop, grid, pos, d = _soup(cuda, seed=9, n_tris=1200)
+    _, _, woop, grid, pos, d, wide_cpu, wide = _soup(cuda, seed=9,
+                                                      n_tris=1200)
     n = pos.shape[0]
     # a third of the rays start exactly on interior cell faces in x, where
     # rounding can put the face just behind the origin
@@ -115,17 +149,20 @@ def test_march_kernel_matches_plain(cuda):
     k = torch.randint(1, grid.dims[0], (m,), device=cuda)
     pos[:m, 0] = (grid.lo[0] + k * grid.h[0]).float()
     tmin = torch.zeros(n, device=cuda)
-    tmax = torch.full((n,), 1e30, device=cuda)
+    tmax = torch.full((n,), IPT_FLT_MAX, device=cuda)
     before = TTD.intersect_march.launches
-    *k, un = TTD.intersect_march(grid, woop, pos, d, tmin, tmax,
-                                 with_unresolved=True)
+    *k, un = TTD.intersect_march(grid, None, pos, d, tmin, tmax,
+                                 with_unresolved=True, wide=wide)
     torch.cuda.synchronize()
     assert TTD.intersect_march.launches == before + 1
-    assert int(un.sum()) == 0
-    p = TTS.intersect_plain(woop, pos, d, tmin,
-                            torch.clamp(tmax, max=0.99 * TTS.FLT_MAX))
+    assert int(un.sum()) == 0 and k[1].dtype == torch.int64
+    tmax_c = torch.clamp(tmax, max=TTS.T_MAX_CAP)
+    p = TTS.intersect_plain(woop, pos, d, tmin, tmax_c)
     hit_eq, t_eq, _ = _agree(k, p)
     assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
+    # the march returns what the walk from node 0 returns
+    _same_as_walk(k, TWB.walk_wide_plain(
+        wide_cpu, pos.cpu(), d.cpu(), tmin.cpu(), tmax_c.cpu()), False)
 
 
 def _instanced(cuda, n_inst=40, seed=3):
@@ -292,6 +329,27 @@ def test_kernels_settle_ties_by_index_and_instance(cuda):
         assert (p[1] >= 0).all() and (p[1] < 128).all()
         assert (k[1] >= 0).all() and (k[1] < 128).all()
         assert (k[1] == p[1]).float().mean() >= 0.999
+    # the streamed kernels: the same sheet in two clusters, one reaching
+    # down and one up, so a ray and its mirror enter them in opposite orders
+    _, _, woop, _, grid, wide, _ = twin_clusters()
+    wide, grid = wide.to(cuda), grid.to(cuda)
+    woop = torch.from_numpy(woop).to(cuda)
+    px = rng.uniform(0.1, 4.9, (n, 2)).astype(np.float32)
+    pos = np.stack([px[:, 0], np.full(n, 2.0, np.float32), px[:, 1]], 1)
+    for sign in (1.0, -1.0):
+        P = torch.from_numpy(pos * np.array([1, sign, 1], np.float32)).to(cuda)
+        D = torch.from_numpy(d * sign).to(cuda)
+        tmin = torch.zeros(n, device=cuda)
+        tmax = torch.full((n,), IPT_FLT_MAX, device=cuda)
+        p = TTS.intersect_plain(woop, P, D, tmin,
+                                torch.clamp(tmax, max=TTS.T_MAX_CAP))
+        assert (p[1] >= 0).all() and (p[1] < 50).all()
+        for k in (TTS.intersect_stream(None, None, None, P, D, tmin, tmax,
+                                       wide=wide),
+                  TTD.intersect_march(grid, None, P, D, tmin, tmax,
+                                      wide=wide)):
+            assert (k[1] >= 0).all() and (k[1] < 50).all()
+            assert (k[1] == p[1]).float().mean() >= 0.999
     # two instances of one quad at the same place
     quad = (np.array([[-1, 0, -1], [-1, 0, -1]], np.float32),
             np.array([[2, 0, 0], [2, 0, 2]], np.float32),
@@ -309,6 +367,36 @@ def test_kernels_settle_ties_by_index_and_instance(cuda):
         k = TTT.intersect_stream_tlas(pack, P, D, torch.zeros(n, device=cuda),
                                       torch.full((n,), 1e30, device=cuda))
         assert (k[1] >= 0).all() and (k[4] == first).all()
+
+
+def twin_clusters():
+    """Two clusters of 51 triangles: the same 5 x 5 sheet of quads at y = 0
+    in both (equal t, the first cluster's 50 slots the lower), plus one
+    small triangle below (cluster 0) or above (cluster 1), so a ray from
+    above enters cluster 1's box first and one from below cluster 0's.
+    Returns ``port_pack``'s tables."""
+    g = np.arange(5, dtype=np.float32)
+    x, z = (a.reshape(-1) for a in np.meshgrid(g, g, indexing='ij'))
+    low = np.stack([x, np.zeros_like(x), z], 1)
+    sheet = (np.concatenate([low, low + (1, 0, 1)]),
+             np.repeat(np.array([[1, 0, 0], [-1, 0, 0]], np.float32), 25, 0),
+             np.repeat(np.array([[0, 0, 1], [0, 0, -1]], np.float32), 25, 0))
+    tips = [(np.array([[2, y, 2]], np.float32),
+             np.array([[0.1, 0, 0]], np.float32),
+             np.array([[0, 0, 0.1]], np.float32)) for y in (-5.0, 5.0)]
+    v0, e1, e2 = (np.concatenate([sheet[j], tips[0][j], sheet[j],
+                                  tips[1][j]]).astype(np.float32)
+                  for j in range(3))
+    lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    bvh = TB.FlatBVH(       # root, cluster 0, cluster 1 in DFS pre-order
+        bmin=np.stack([lo.min(0), lo[:51].min(0), lo[51:].min(0)]),
+        bmax=np.stack([hi.max(0), hi[:51].max(0), hi[51:].max(0)]),
+        skip=np.array([-1, 2, -1], np.int32),
+        tri_offset=np.array([0, 0, 51], np.int32),
+        tri_count=np.array([0, 51, 51], np.int32),
+        order=np.arange(102, dtype=np.int32))
+    return port_pack(v0, e1, e2, bvh=bvh)
 
 
 @pytest.mark.parametrize('any_hit', [False, True])
@@ -465,15 +553,44 @@ def test_mega_regen_kernel_matches_plain(cuda):
 
 
 def test_wrappers_refuse_wrong_inputs(cuda):
-    nf, ni, woop, grid, pos, d = _soup(cuda, n_rays=128)
+    nf, ni, woop, grid, pos, d, _, wide = _soup(cuda, n_rays=128)
     tmin = torch.zeros(128, device=cuda)
     tmax = torch.full((128,), 1e30, device=cuda)
+    # the streamed queries: no table, or a wrong one, is refused on the card
+    # (never the old walks or the plain version)
+    n = TTS.intersect_stream.launches, TTD.intersect_march.launches
+    with pytest.raises(ValueError, match='wide'):
+        TTS.intersect_stream(nf, ni, woop, pos, d, tmin, tmax)
+    with pytest.raises(ValueError, match='wide'):
+        TTS.intersect_stream(nf, ni, woop, pos, d, tmin, tmax, any_hit=True)
+    with pytest.raises(ValueError, match='wide'):
+        TTD.intersect_march(grid, woop, pos, d, tmin, tmax)
     with pytest.raises(ValueError):
-        TTS.intersect_stream(nf, ni.long(), woop, pos, d, tmin, tmax)
+        TTS.intersect_stream(nf, ni, woop, pos, d, tmin, tmax,
+                             wide=dataclasses.replace(
+                                 wide, index=wide.index.long()))
     with pytest.raises(ValueError):
-        TTS.intersect_stream(nf.cpu(), ni, woop, pos, d, tmin, tmax)
+        TTS.intersect_stream(nf, ni, woop, pos, d, tmin, tmax,
+                             wide=dataclasses.replace(
+                                 wide, nodes=wide.nodes.cpu()))
+    with pytest.raises(ValueError, match='stack'):
+        TTS.intersect_stream(nf, ni, woop, pos, d, tmin, tmax,
+                             wide=dataclasses.replace(
+                                 wide, stack=TWB.MAX_STACK + 1))
     with pytest.raises(ValueError):
-        TTD.intersect_march(grid, woop.double(), pos, d, tmin, tmax)
+        TTD.intersect_march(grid, woop, pos, d, tmin, tmax,
+                            wide=dataclasses.replace(
+                                wide, cl_root=wide.cl_root.long()))
+    with pytest.raises(ValueError):
+        TTD.intersect_march(dataclasses.replace(
+            grid, cell_tab=grid.cell_tab.cpu()), woop, pos, d, tmin, tmax,
+            wide=wide)
+    with pytest.raises(ValueError, match='stack'):
+        TTD.intersect_march(grid, woop, pos, d, tmin, tmax,
+                            wide=dataclasses.replace(
+                                wide, cl_stack=TWB.MARCH_STACK + 1))
+    assert (TTS.intersect_stream.launches,
+            TTD.intersect_march.launches) == n
     # the later ray-query wrappers: tables on the wrong device or dtype
     _, pack = _instanced(cuda, n_inst=4)
     with pytest.raises(ValueError):
@@ -521,6 +638,10 @@ def test_wrappers_refuse_wrong_inputs(cuda):
             TTP.intersect_clusters(cnf, cni, tris12, *bad, wide=wide)
         with pytest.raises(ValueError):
             TTT.intersect_stream_tlas(pack, *bad)
+        with pytest.raises(ValueError):
+            TTS.intersect_stream(nf, ni, woop, *bad, wide=wide)
+        with pytest.raises(ValueError):
+            TTD.intersect_march(grid, woop, *bad, wide=wide)
     with pytest.raises(ValueError, match='outlier'):
         TTD.intersect_dda(dataclasses.replace(grid, n_outliers=1), woop, pos,
                           d, tmin, tmax)

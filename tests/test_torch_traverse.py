@@ -258,14 +258,16 @@ def test_nearest_hit_retraces_only_unresolved_lanes(monkeypatch):
     pos, d = (torch.from_numpy(a) for a in random_rays(rng, n))
     tmin = torch.zeros(n)
     tmax = torch.full((n,), 1e30)
+    # on the CPU the plain version reads the contract tables alone
     scene = types.SimpleNamespace(st_grid=grid, st_woop=torch.from_numpy(woop),
                                   st_nodes_f=torch.from_numpy(nf),
-                                  st_nodes_i=torch.from_numpy(ni))
+                                  st_nodes_i=torch.from_numpy(ni),
+                                  st_wide=None)
     un = torch.zeros(n, dtype=torch.int32)
     un[::3] = 1
     bad = un > 0
 
-    def march_leaving_lanes(*args, with_unresolved):
+    def march_leaving_lanes(*args, with_unresolved, wide):
         t, tri, u, v = TTS.intersect_plain(scene.st_woop, pos, d, tmin,
                                            tmax.clamp(max=0.99 * 3.4e38))
         return (torch.where(bad, -1.0, t), torch.where(bad, -7, tri),
@@ -299,9 +301,11 @@ def test_shadow_sort_is_inverted():
     t_max = torch.from_numpy(rng.uniform(0.0, 6.0, n).astype(np.float32))
     need = t_max > 1.0
     rays = TIPT.ShadowRays(pos, d, torch.where(need, t_max, 0.0), need)
+    # on the CPU the plain version reads the contract tables alone
     scene = types.SimpleNamespace(st_grid=grid, st_woop=torch.from_numpy(woop),
                                   st_nodes_f=torch.from_numpy(nf),
-                                  st_nodes_i=torch.from_numpy(ni))
+                                  st_nodes_i=torch.from_numpy(ni),
+                                  st_wide=None)
     perm, *query = TIPT.sorted_shadow_query(grid, rays)
     assert not torch.equal(perm, torch.arange(n))
     occ = TIPT.shadow_occluded(scene, rays)
