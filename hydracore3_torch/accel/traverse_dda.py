@@ -184,7 +184,7 @@ def intersect_march(grid: GridPack, woop, ray_pos, ray_dir, t_min, t_max,
             grid.cl_aabb.data_ptr(), grid.outliers.data_ptr(),
             grid.n_outliers, wide.nodes.data_ptr(), wide.rows.data_ptr(),
             wide.index.data_ptr(), wide.cl_root.data_ptr(), wide.cl_stack,
-            *(x.data_ptr() for x in rays), TST.T_MAX_CAP, N, *grid.lo,
+            wide.margin, *(x.data_ptr() for x in rays), TST.T_MAX_CAP, N, *grid.lo,
             *grid.h, d0, d1, d2, 4 * (d0 + d1 + d2) + 64,
             t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             un.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

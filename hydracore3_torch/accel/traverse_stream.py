@@ -66,7 +66,7 @@ def load_library(defines=()):
     lib.hc3_intersect_stream.restype = i
     lib.hc3_intersect_stream.argtypes = [p] * 7 + [f, i, i, i] + [p] * 5
     lib.hc3_intersect_march.restype = i
-    lib.hc3_intersect_march.argtypes = ([p] * 4 + [i] + [p] * 4 + [i]
+    lib.hc3_intersect_march.argtypes = ([p] * 4 + [i] + [p] * 4 + [i, f]
                                         + [p] * 4 + [f, i] + [f] * 6
                                         + [i] * 4 + [p] * 6)
     lib.hc3_intersect_tlas.restype = i

@@ -21,6 +21,11 @@ host:
   triangle order (in a TLAS: one instance, ``offset`` its id);
 * ``pack_wide_clusters``: the one-level tables of ``intersect_clusters``;
 * ``pack_wide_tlas``: the two-level tables of ``intersect_stream_tlas``;
+* ``widen_boxes`` / ``box_margin``: every child box grown by a margin
+  (``MARGIN_REL``, stated below) in the tables whose walks must return
+  what a test of every triangle returns, ties included: the streamed
+  scenes' (``pack_wide_stream``) and the megakernel's
+  (``models/megakernel.wide_table``);
 * ``pack_wide_stream``: one table for both streamed queries,
   ``intersect_stream`` and ``intersect_march``: a tree per cluster of the
   stream BVH (its roots in ``cl_root``, what the march enters at a cluster)
@@ -48,6 +53,22 @@ NODE_WORDS = 32              # 8 rows of 4 words
 REF_ROW = 6                  # the row of child references
 MAX_STACK = 64               # entries per ray the kernels provide
 MARCH_STACK = 16             # entries per ray the march provides in a cluster
+# A walk that settles ties by comparison returns what a test of every
+# triangle returns only if it reaches the winner's leaf.  A hit on a box's
+# face (a wall or the ground lies on its boxes' faces; neighbouring
+# triangles share edges) can lie an ulp outside the box as the slab test
+# computes it, while the Woop test takes it: its t and the slab's entry
+# distance round differently (on the bench city: a wall's leaf entered at
+# 8.081708 for a hit at 8.081695), and the lower-index twin's leaf is
+# culled at an equal t.  Both roundings are an ulp or two of the
+# coordinates, C * 2^-23 each (C the scene's largest |coordinate|, at least
+# 1), times the small conditioning of the Woop rows of these scenes, so the
+# tables whose walks must equal the plain version widen every child box on
+# each side by C * MARGIN_REL, eight such ulps.  That stays below the
+# 1e-5 * |p| and 5e-6 * max(1, ...) by which a bounce or shadow ray leaves
+# its surface, so a ray does not re-enter the leaves it starts on; only the
+# set of boxes entered grows, the tests stay the plain version's.
+MARGIN_REL = 2.0 ** -20
 _INF = float('inf')
 _DET_EPS = 1e-12
 
@@ -144,6 +165,24 @@ def node_boxes(nodes: np.ndarray):
     return b[:, :, 0:3], b[:, :, 3:6]
 
 
+def box_margin(v0, e1, e2) -> float:
+    """C * MARGIN_REL for a soup (v0, e1, e2 [T, 3]): C its largest
+    |coordinate|, at least 1."""
+    v0 = np.asarray(v0, np.float32)
+    corners = np.concatenate([v0, v0 + np.asarray(e1, np.float32),
+                              v0 + np.asarray(e2, np.float32)])
+    return max(1.0, float(np.abs(corners).max(initial=0.0))) * MARGIN_REL
+
+
+def widen_boxes(nodes: np.ndarray, margin: float):
+    """Widen every child box of packed nodes by ``margin`` on each side, in
+    place (computed in f64, rounded to f32)."""
+    b = nodes[:, :6 * WIDTH].astype(np.float64)
+    b[:, :3 * WIDTH] -= margin
+    b[:, 3 * WIDTH:] += margin
+    nodes[:, :6 * WIDTH] = b.astype(np.float32)
+
+
 _WIDE_TABLES = ('nodes', 'rows', 'index', 'inst_f', 'inst_i', 'cl_root')
 
 
@@ -166,6 +205,7 @@ class WidePack:
     woop: bool = False     # one level: rows are Woop rows
     cl_root: object = None  # [C] i32: the wide node that roots cluster c
     cl_stack: int = 0      # stack entries a walk from a cl_root needs
+    margin: float = 0.0    # how far every child box was widened
 
     def to(self, device) -> 'WidePack':
         moved = {k: torch.as_tensor(getattr(self, k), device=device)
@@ -248,7 +288,9 @@ def pack_wide_stream(nodes_f, nodes_i, woop, v0, e1, e2) -> WidePack:
     contract's Woop rows bit for bit and ``index`` their padded slots, so a
     walk returns the contract's t and triangle; padding slots appear
     nowhere.  ``stack`` is what a walk from node 0 needs, ``cl_stack`` what
-    a walk from any cluster root needs."""
+    a walk from any cluster root needs.  Every child box is widened by
+    ``box_margin`` of the soup (``margin``; the march widens the contract's
+    cluster boxes by it as well)."""
     nodes_f = np.asarray(nodes_f, np.float32)
     nodes_i = np.asarray(nodes_i, np.int32)
     woop = np.asarray(woop, np.float32)
@@ -284,10 +326,12 @@ def pack_wide_stream(nodes_f, nodes_i, woop, v0, e1, e2) -> WidePack:
     base = np.repeat(roots + M, [len(p) for p in parts])[:, None]
     refs[:] = np.where(refs >= 0, refs + base, refs)
     index = np.concatenate(index)
+    margin = box_margin(v0, e1, e2)
+    widen_boxes(nodes, margin)
     return WidePack(nodes=nodes, rows=np.ascontiguousarray(woop[index]),
                     index=index.astype(np.int32), stack=stack, woop=True,
                     cl_root=(roots + M).astype(np.int32),
-                    cl_stack=int(stacks.max()))
+                    cl_stack=int(stacks.max()), margin=margin)
 
 
 # ---- the walk in plain torch ----------------------------------------------

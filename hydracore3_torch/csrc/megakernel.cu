@@ -20,21 +20,37 @@
 // The arithmetic is the plain version's (models/megakernel.py), op for op
 // and in its order.  The source is built with -fmad=false so nvcc contracts
 // nothing into FMAs: every product and sum rounds as the plain torch ops
-// round, and the Woop test takes the same decisions.  What remains different
-// is rsqrtf/sinf/cosf against the CPU's libm (equal to torch's own CUDA ops),
-// so the kernel is held against the plain version on the card at rtol/atol
-// 1e-3 on >= 99.5% of lanes with RNG and flags equal on >= 99.9%.
+// round, and the Woop test takes the same decisions.  rsqrtf, sinf, cosf
+// and IEEE division are the card's, as in torch's own CUDA ops, so on the
+// card the kernel equals the plain version on every lane.
 //
-// What bounds it: per-lane arithmetic.  Each trace tests every triangle
-// (<= 4096, brute force, as the TPU kernel does): three float4 loads whose
-// address is uniform across the warp (a broadcast, served from L1) and ~30
-// flops; a bounce runs one nearest trace and one shadow any-hit.  The
-// tables (triangles, shade rows, material, light and texture-slot rows,
-// consts) are a few KB to a few hundred KB and stay in L1/L2; the only
-// per-lane memory traffic is the state in and out.  Divergence is the main
-// cost: lanes of a warp die at different bounces (the fixed chain idles
-// them to the end; regen refills them).  No shared memory.  Registers and
-// spills are reported by hc3_mega_attrs (chip_smoke.py prints them).
+// The trace.  The plain version (and the TPU kernel) tests every triangle
+// on every bounce, <= 4,096 of them.  The kernel walks instead the pack's
+// wide BVH (accel/wide_bvh.py, models/megakernel.wide_table): 128-byte
+// nodes of 4 children's boxes over leaves of at most 4 of the pack's Woop
+// rows, near-first with a per-lane stack of MEGA_STACK entries in local
+// memory; the leaf test is the brute trace's own woop(), so t, u and v are
+// its bits.  Ties are settled by comparison (the lower contract index wins
+// among equal t), boxes are entered and stack entries kept at t == best,
+// and any-hit returns at the first valid triangle, so the walk returns the
+// brute trace's hit whenever it reaches the winner's leaf; the pack widens
+// every box by a margin that covers the slab test's and the Woop test's
+// rounding.  On the 16-triangle box a trace makes ~6 Woop tests instead of
+// 16; on the box with its walls cut into 20 x 20 grids (4,006 triangles),
+// ~4 instead of 4,096.
+//
+// What bounds it: per-lane arithmetic and divergence.  The tables (nodes,
+// rows, shade rows, material, light and texture-slot rows, consts) are a
+// few KB to a few hundred KB and stay in L1/L2; the per-lane memory traffic
+// is the lane state in and out.  A shade (texture tap, NEE with its light
+// sample and GLTF eval, the GLTF sample) is ~1,100 separate operations with
+// no FMA, so the attainable rate is half the card's f32 peak.  Lanes of a
+// warp die at different bounces (the fixed chain idles them to the end;
+// regen refills them).  Material and light rows are padded to whole float4s
+// and read as float4s, and a lane whose hit is a light draws NEE's random
+// numbers and skips the rest of NEE, whose result its bounce discards.  No
+// shared memory.  Registers and local bytes are reported by hc3_mega_attrs
+// (chip_smoke.py prints them).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +58,10 @@
 namespace {
 
 constexpr int BLOCK = 128;
+// Blocks an SM must hold: caps the registers at 80 a thread (the walk and
+// the shading state together want 122-128, 4 blocks); measured faster on
+// the box and on the tessellated box than 4, 5, 7 or 8 (PERF.md, PR 6).
+constexpr int MIN_BLOCKS = 6;
 
 // Python-float constants rounded to f32, as torch and JAX round them
 #define F(x) static_cast<float>(x)
@@ -49,9 +69,9 @@ constexpr int BLOCK = 128;
 // table layouts (models/megakernel.py)
 enum { MF_MTYPE = 0, MF_CFLAGS = 1, MF_C0 = 2, MF_C1 = 6, MF_C2 = 10,
        MF_DATA = 14, MF_TEXID = 22, MF_TEXC = 23, MF_ROW0 = 27, MF_ROW1 = 31,
-       MF_NROWS = 37 };
+       MF_NROWS = 40 };             // whole float4s
 enum { LF_POS = 0, LF_NORM = 3, LF_INT = 6, LF_MAT = 10, LF_SIZE = 19,
-       LF_PDFA = 21, LF_MULT = 22, LF_GEOM = 23, LF_DIST = 24, LF_NROWS = 26 };
+       LF_PDFA = 21, LF_MULT = 22, LF_GEOM = 23, LF_DIST = 24, LF_NROWS = 28 };
 enum { TF_NROWS = 6 };
 enum { CN_PROJ_INV = 0, CN_WVI = 16, CN_CAM_RESP = 32, CN_ENV_COLOR = 36,
        CN_NUM_LIGHTS = 40, CN_WIDTH = 41, CN_HEIGHT = 42, CN_EXPOSURE = 43 };
@@ -124,15 +144,43 @@ __device__ __forceinline__ float safe_sqrt(float x) {
 __device__ __forceinline__ bool is_fin(float x) { return isfinite(x); }
 
 struct Tables {
-  const float4* __restrict__ woop;    // [T, 3] float4 rows x, y, z
-  const float* __restrict__ shade;    // [T, 32]
-  const float* __restrict__ mat;      // [128, MF_NROWS]
-  const float* __restrict__ light;    // [128, LF_NROWS]
+  const float4* __restrict__ nodes;   // [M, 8] float4: wide node records
+  const float4* __restrict__ rows;    // [T, 3] float4: Woop rows, fine order
+  const int* __restrict__ index;      // [T]: fine position -> contract index
+  const float* __restrict__ shade;    // [Tpad, 32]
+  const float4* __restrict__ mat;     // [128, MF_NROWS / 4]
+  const float4* __restrict__ light;   // [128, LF_NROWS / 4]
   const float* __restrict__ tex;      // [128, TF_NROWS]
   const float* __restrict__ consts;   // [56]
   const float4* __restrict__ texels;  // [P] float4
-  int n_tris, n_texels, textured;
+  int n_texels, textured;
 };
+
+// What a lane did: Woop tests, child-box tests and shades.  Only a build
+// with -DHC3_COUNT counts: a second library of this source, loaded by
+// chip_smoke.py alone to measure a pass's operations (a bound's numerator),
+// with hc3_mega_counts_reset / hc3_mega_counts_read besides the entry
+// points.  In the shipped build the HC3_ macros expand to nothing.
+#ifdef HC3_COUNT
+struct Counts {
+  unsigned long long woop = 0, slab = 0, shade = 0;
+};
+__device__ unsigned long long g_counts[3];
+#define HC3_COUNTS_FIELD Counts cnt;
+#define HC3_TICK(s, field) (++(s).cnt.field)
+#define HC3_FLUSH(s)                                                          \
+  do {                                                                        \
+    atomicAdd(g_counts + 0, (s).cnt.woop);                                    \
+    atomicAdd(g_counts + 1, (s).cnt.slab);                                    \
+    atomicAdd(g_counts + 2, (s).cnt.shade);                                   \
+  } while (0)
+#define HC3_ZERO(s) ((s).cnt = Counts{})
+#else
+#define HC3_COUNTS_FIELD
+#define HC3_TICK(s, field)
+#define HC3_FLUSH(s)
+#define HC3_ZERO(s)
+#endif
 
 __device__ __forceinline__ float ld(const float* p, int i) {
   return __ldg(p + i);
@@ -174,6 +222,7 @@ struct St {
   V3 hit_pos, hit_norm;
   float hit_u, hit_v, hit_dist, hit_lgt;
   uint32_t rngx, rngy, flags;
+  HC3_COUNTS_FIELD
 };
 
 __device__ __forceinline__ bool dead(const St& s) {
@@ -217,56 +266,137 @@ __device__ void stage_init(const Tables& tb, float xs, float ys, St& s) {
   s.hit_lgt = -1.0f;
 }
 
-// ---- brute Woop trace -----------------------------------------------------
+// ---- the trace: a near-first walk of the pack's wide BVH -----------------
 
 struct Hit {
   float t, u, v;
   int tri;
 };
 
-__device__ __forceinline__ void woop(const Tables& tb, int i, V3 o, V3 d,
+constexpr int MEGA_STACK = 32;          // entries per lane at most
+constexpr int WIDE_EMPTY = static_cast<int>(0x80000000u);  // no child
+
+struct __align__(8) Entry {
+  int ref;
+  float t;
+};
+
+// The Woop test of the plain version's _trace_blocks, op for op (under
+// -fmad=false nothing is contracted), on one triangle's rows w[0..2]
+__device__ __forceinline__ void woop(const float4* __restrict__ w, V3 o, V3 d,
                                      float& t, float& u, float& v) {
-  float4 a = __ldg(tb.woop + 3 * i);
-  float4 b = __ldg(tb.woop + 3 * i + 1);
-  float4 c = __ldg(tb.woop + 3 * i + 2);
+  float4 a = __ldg(w), b = __ldg(w + 1), c = __ldg(w + 2);
   float po_x = a.x * o.x + a.y * o.y + a.z * o.z + a.w * 1.0f;
   float pd_x = a.x * d.x + a.y * d.y + a.z * d.z + a.w * 0.0f;
   float po_y = b.x * o.x + b.y * o.y + b.z * o.z + b.w * 1.0f;
   float pd_y = b.x * d.x + b.y * d.y + b.z * d.z + b.w * 0.0f;
   float po_z = c.x * o.x + c.y * o.y + c.z * o.z + c.w * 1.0f;
   float pd_z = c.x * d.x + c.y * d.y + c.z * d.z + c.w * 0.0f;
-  t = -po_z / pd_z;      // padded / degenerate rows: 0/0 = NaN, rejected
+  t = -po_z / pd_z;      // degenerate rows: 0/0 = NaN, rejected
   u = po_x + t * pd_x;
   v = po_y + t * pd_y;
 }
 
-// nearest hit in (0, FLT_MAX); ties keep the lowest triangle index
-__device__ Hit trace_nearest(const Tables& tb, V3 o, V3 d) {
-  Hit h{FLT_MAX_F, 0.0f, 0.0f, -1};
-  for (int i = 0; i < tb.n_tris; ++i) {
-    float t, u, v;
-    woop(tb, i, o, d, t, u, v);
-    bool valid = u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
-                 t < FLT_MAX_F;
-    if (valid && t < h.t) h = {t, u, v, i};
-  }
-  return h;
+__device__ __forceinline__ float safe_inv(float d) {
+  return fabsf(d) > F(1e-20) ? 1.0f / d : F(1e30);
 }
 
-__device__ bool trace_any(const Tables& tb, V3 o, V3 d, float tmax) {
-  for (int i = 0; i < tb.n_tris; ++i) {
-    float t, u, v;
-    woop(tb, i, o, d, t, u, v);
-    if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t < tmax)
-      return true;
-  }
-  return false;
+// entry distance of the ray into one child's box (t >= 0), +inf on a miss;
+// inclusive against the best t, so a box at the best t is still entered
+__device__ __forceinline__ float slab_entry(V3 o, V3 inv, float lx, float ly,
+                                            float lz, float hx, float hy,
+                                            float hz, float best_t) {
+  float t0x = (lx - o.x) * inv.x, t1x = (hx - o.x) * inv.x;
+  float t0y = (ly - o.y) * inv.y, t1y = (hy - o.y) * inv.y;
+  float t0z = (lz - o.z) * inv.z, t1z = (hz - o.z) * inv.z;
+  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                   fmaxf(fminf(t0z, t1z), 0.0f));
+  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                   fminf(fmaxf(t0z, t1z), best_t));
+  return tn <= tf ? tn : INFINITY;
 }
+
+// compare-exchange of two (entry distance, reference) pairs; the pair moves
+// only when the later distance is strictly smaller
+#define WIDE_CE(a, b)                                                         \
+  if (t##b < t##a) {                                                          \
+    float tt = t##a; t##a = t##b; t##b = tt;                                  \
+    int cc = c##a; c##a = c##b; c##b = cc;                                    \
+  }
+
+// Nearest hit in (0, tmax), or (ANY_HIT) whether any triangle is hit there
+// (tri 0).  The walk visits a node's children nearest first and keeps the
+// others on the lane's stack; a popped entry beyond the best t is dropped.
+// Every triangle whose leaf the walk reaches gets the brute trace's test, so
+// the result is the brute trace's bit for bit whenever the winner's leaf is
+// reached: ties go to the lower contract index by comparison, and boxes are
+// entered, and entries kept, at t == best (the pack widens every box by a
+// margin that covers the Woop test's rounding, models/megakernel.py).
+template <bool ANY_HIT>
+__device__ Hit trace(const Tables& tb, V3 o, V3 d, float tmax, St& s,
+                     Entry* __restrict__ stack) {
+  Hit h{tmax, 0.0f, 0.0f, -1};
+  V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  int sp = 0, cur = 0;
+  while (true) {
+    while (cur >= 0) {
+      const float4* nd = tb.nodes + 8 * cur;
+      float4 lx = __ldg(nd), ly = __ldg(nd + 1), lz = __ldg(nd + 2);
+      float4 hx = __ldg(nd + 3), hy = __ldg(nd + 4), hz = __ldg(nd + 5);
+      int4 c = __ldg(reinterpret_cast<const int4*>(nd) + 6);
+      int c0 = c.x, c1 = c.y, c2 = c.z, c3 = c.w;
+      float t0 = slab_entry(o, inv, lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, h.t);
+      float t1 = slab_entry(o, inv, lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, h.t);
+      float t2 = slab_entry(o, inv, lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, h.t);
+      float t3 = slab_entry(o, inv, lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, h.t);
+      if (c0 == WIDE_EMPTY) t0 = INFINITY; else HC3_TICK(s, slab);
+      if (c1 == WIDE_EMPTY) t1 = INFINITY; else HC3_TICK(s, slab);
+      if (c2 == WIDE_EMPTY) t2 = INFINITY; else HC3_TICK(s, slab);
+      if (c3 == WIDE_EMPTY) t3 = INFINITY; else HC3_TICK(s, slab);
+      // far to near, so the nearest waiting child is popped first (any-hit
+      // takes the first occluder wherever it lies: unsorted measured faster)
+      if (!ANY_HIT) {
+        WIDE_CE(0, 1) WIDE_CE(2, 3) WIDE_CE(0, 2) WIDE_CE(1, 3) WIDE_CE(1, 2)
+      }
+      if (t3 < INFINITY) stack[sp++] = Entry{c3, t3};
+      if (t2 < INFINITY) stack[sp++] = Entry{c2, t2};
+      if (t1 < INFINITY) stack[sp++] = Entry{c1, t1};
+      cur = t0 < INFINITY ? c0 : WIDE_EMPTY;
+    }
+    if (cur != WIDE_EMPTY) {            // a leaf: count <= 4 rows from off
+      int code = ~cur;
+      int off = code >> 3, count = code & 7;
+      for (int k = 0; k < count; ++k) {
+        HC3_TICK(s, woop);
+        float t, u, v;
+        woop(tb.rows + 3 * (off + k), o, d, t, u, v);
+        if (!(u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
+              t < tmax))
+          continue;
+        if (ANY_HIT) return Hit{0.0f, 0.0f, 0.0f, 0};
+        int tri = __ldg(tb.index + off + k);
+        if (t < h.t || (t == h.t && tri < h.tri)) h = Hit{t, u, v, tri};
+      }
+    }
+    cur = WIDE_EMPTY;
+    while (sp > 0) {
+      Entry e = stack[--sp];
+      if (e.t <= h.t) {
+        cur = e.ref;
+        break;
+      }
+    }
+    if (cur == WIDE_EMPTY) return h;
+  }
+}
+
+#undef WIDE_CE
 
 // kernel_RayTrace2: nearest hit, shade-row lerp, normal flip, flags
-__device__ void stage_trace(const Tables& tb, St& s, bool prim) {
+__device__ void stage_trace(const Tables& tb, St& s, bool prim,
+                            Entry* __restrict__ stack) {
   if (dead(s)) return;
-  Hit h = trace_nearest(tb, s.o, s.d);
+  Hit h = trace<false>(tb, s.o, s.d, FLT_MAX_F, s, stack);
   if (!(h.t < F(3.4e38 * 0.5))) {
     s.flags |= FLAG_IS_DEAD | FLAG_OUT_OF_SCENE |
                (prim ? FLAG_PRIME_RAY_MISS : 0u);
@@ -301,26 +431,41 @@ struct Mat {
   float data[8], row0[4], row1[4];
 };
 
-__device__ __forceinline__ V4 ld4(const float* p) {
-  return {ld(p, 0), ld(p, 1), ld(p, 2), ld(p, 3)};
+// columns c0..c0+n of a row held as float4s, read as whole float4s
+template <int N>
+__device__ __forceinline__ void ld_row(const float4* __restrict__ row,
+                                       float (&out)[N]) {
+#pragma unroll
+  for (int q = 0; q < (N + 3) / 4; ++q) {
+    float4 x = __ldg(row + q);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * q + j < N) out[4 * q + j] = xs[j];
+  }
+}
+
+__device__ __forceinline__ V4 v4(const float* r, int c) {
+  return {r[c], r[c + 1], r[c + 2], r[c + 3]};
 }
 
 __device__ Mat fetch_mat(const Tables& tb, uint32_t mid) {
-  const float* r = tb.mat + (mid < 127u ? mid : 127u) * MF_NROWS;
+  float r[MF_ROW1 + 4];
+  ld_row(tb.mat + (mid < 127u ? mid : 127u) * (MF_NROWS / 4), r);
   Mat m;
-  m.mtype = ld(r, MF_MTYPE);
-  m.cflags = ld(r, MF_CFLAGS);
-  m.texid = ld(r, MF_TEXID);
-  m.c0 = ld4(r + MF_C0);
-  m.c1 = ld4(r + MF_C1);
-  m.c2 = ld4(r + MF_C2);
-  m.texc = ld4(r + MF_TEXC);
+  m.mtype = r[MF_MTYPE];
+  m.cflags = r[MF_CFLAGS];
+  m.texid = r[MF_TEXID];
+  m.c0 = v4(r, MF_C0);
+  m.c1 = v4(r, MF_C1);
+  m.c2 = v4(r, MF_C2);
+  m.texc = v4(r, MF_TEXC);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) m.data[j] = ld(r, MF_DATA + j);
+  for (int j = 0; j < 8; ++j) m.data[j] = r[MF_DATA + j];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    m.row0[j] = ld(r, MF_ROW0 + j);
-    m.row1[j] = ld(r, MF_ROW1 + j);
+    m.row0[j] = r[MF_ROW0 + j];
+    m.row1[j] = r[MF_ROW1 + j];
   }
   return m;
 }
@@ -644,19 +789,20 @@ struct Lgt {
 
 __device__ Lgt fetch_light(const Tables& tb, int lid) {
   lid = lid < 0 ? 0 : (lid > 127 ? 127 : lid);
-  const float* r = tb.light + lid * LF_NROWS;
+  float r[LF_DIST + 1];
+  ld_row(tb.light + lid * (LF_NROWS / 4), r);
   Lgt L;
-  L.pos = {ld(r, LF_POS), ld(r, LF_POS + 1), ld(r, LF_POS + 2)};
-  L.norm = {ld(r, LF_NORM), ld(r, LF_NORM + 1), ld(r, LF_NORM + 2)};
-  L.inten = ld4(r + LF_INT);
+  L.pos = {r[LF_POS], r[LF_POS + 1], r[LF_POS + 2]};
+  L.norm = {r[LF_NORM], r[LF_NORM + 1], r[LF_NORM + 2]};
+  L.inten = v4(r, LF_INT);
 #pragma unroll
-  for (int j = 0; j < 9; ++j) L.m[j] = ld(r, LF_MAT + j);
-  L.size0 = ld(r, LF_SIZE);
-  L.size1 = ld(r, LF_SIZE + 1);
-  L.pdf_a = ld(r, LF_PDFA);
-  L.mult = ld(r, LF_MULT);
-  L.geom = (int)ld(r, LF_GEOM);
-  L.dist = (int)ld(r, LF_DIST);
+  for (int j = 0; j < 9; ++j) L.m[j] = r[LF_MAT + j];
+  L.size0 = r[LF_SIZE];
+  L.size1 = r[LF_SIZE + 1];
+  L.pdf_a = r[LF_PDFA];
+  L.mult = r[LF_MULT];
+  L.geom = (int)r[LF_GEOM];
+  L.dist = (int)r[LF_DIST];
   return L;
 }
 
@@ -728,7 +874,8 @@ __device__ __forceinline__ float mis_weight(float a, float b) {
 }
 
 // kernel_SampleLightSource, MIS (integrator_pt.cpp:350-424)
-__device__ V4 stage_nee(const Tables& tb, const Mat& m, V4 tex, St& s) {
+__device__ V4 stage_nee(const Tables& tb, const Mat& m, V4 tex, St& s,
+                        Entry* __restrict__ stack) {
   const V4 zero = {0.0f, 0.0f, 0.0f, 0.0f};
   float rnd_id = rnd1(s.rngx, s.rngy);
   float r[4];
@@ -745,7 +892,8 @@ __device__ V4 stage_nee(const Tables& tb, const Mat& m, V4 tex, St& s) {
   float offs = maxn(maxn(hp.x, maxn(hp.y, hp.z)), 1.0f) * F(5e-6);
   V3 spos = add(hp, scale(s.hit_norm, offs));
   if (!(dot3(sdir, lnorm) < 0.0f || omni)) return zero;
-  if (trace_any(tb, spos, sdir, dist * F(0.9995))) return zero;
+  if (trace<true>(tb, spos, sdir, dist * F(0.9995), s, stack).tri >= 0)
+    return zero;
   float bsdf_pdf;
   V4 val = mat_eval(m, tex, sdir, neg(s.d), s.hit_norm, bsdf_pdf);
   float cos_out = maxn(dot3(sdir, s.hit_norm), 0.0f);
@@ -810,11 +958,23 @@ __device__ void stage_next_bounce(const Tables& tb, const Mat& m, V4 tex,
   s.flags = next;
 }
 
-// NEE and the next bounce at a live lane's hit
-__device__ void shade_hit(const Tables& tb, St& s, bool prim) {
+// NEE and the next bounce at a live lane's hit.  At a light-source material
+// the bounce ends the path and takes no NEE result, so NEE only advances the
+// RNG as the plain version's does (rnd1, rnd4) and skips the light sample,
+// the shadow trace and the eval.
+__device__ void shade_hit(const Tables& tb, St& s, bool prim,
+                          Entry* __restrict__ stack) {
+  HC3_TICK(s, shade);
   Mat m = fetch_mat(tb, s.flags & 0x00FFFFFFu);
   V4 tex = tex_tap(tb, m, s);
-  V4 sc = stage_nee(tb, m, tex, s);
+  V4 sc = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (m.mtype == MTYPE_SMALL_LIGHT) {
+    float r[4];
+    rnd1(s.rngx, s.rngy);
+    rnd4(s.rngx, s.rngy, r);
+  } else {
+    sc = stage_nee(tb, m, tex, s, stack);
+  }
   stage_next_bounce(tb, m, tex, s, sc, prim);
 }
 
@@ -833,19 +993,21 @@ __device__ V4 env_contribute(const Tables& tb, const St& s) {
 
 // ---- the two kernels ---------------------------------------------------------
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 mega_sample_kernel(Tables tb, const float* __restrict__ xy,
                    const long long* __restrict__ su_in, int depth, int n,
                    float* __restrict__ contrib, long long* __restrict__ su_out) {
   int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
+  Entry stack[MEGA_STACK];
   St s;
+  HC3_ZERO(s);
   s.rngx = (uint32_t)su_in[i];
   s.rngy = (uint32_t)su_in[n + i];
   stage_init(tb, xy[i], xy[n + i], s);
   for (int b = 0; b < depth && !dead(s); ++b) {
-    stage_trace(tb, s, b == 0);
-    if (!dead(s)) shade_hit(tb, s, b == 0);
+    stage_trace(tb, s, b == 0, stack);
+    if (!dead(s)) shade_hit(tb, s, b == 0, stack);
   }
   V4 c = env_contribute(tb, s);
   contrib[i] = c.x;
@@ -855,24 +1017,27 @@ mega_sample_kernel(Tables tb, const float* __restrict__ xy,
   su_out[i] = s.rngx;
   su_out[n + i] = s.rngy;
   su_out[2 * n + i] = s.flags;
+  HC3_FLUSH(s);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 mega_regen_kernel(Tables tb, const float* __restrict__ xy,
                   const float* __restrict__ sf, const long long* __restrict__ su,
                   int first, int k, int depth, int n,
                   float* __restrict__ sf_out, long long* __restrict__ su_out) {
   int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
+  Entry stack[MEGA_STACK];
   float xs = xy[i], ys = xy[n + i];
   St s;
+  HC3_ZERO(s);
   V4 acc;
   uint32_t ndone, bcnt;
   if (first) {                          // rfirst
     s.rngx = (uint32_t)su[i];
     s.rngy = (uint32_t)su[n + i];
     stage_init(tb, xs, ys, s);
-    stage_trace(tb, s, true);
+    stage_trace(tb, s, true, stack);
     acc = {0.0f, 0.0f, 0.0f, 0.0f};
     ndone = bcnt = 0u;
     --k;
@@ -910,7 +1075,7 @@ mega_regen_kernel(Tables tb, const float* __restrict__ xy,
       bcnt = 0u;
     } else {
       // 2. shade; truncate at the depth; 3. flush a path that died
-      shade_hit(tb, s, bcnt == 0u);
+      shade_hit(tb, s, bcnt == 0u, stack);
       ++bcnt;
       if (bcnt >= (uint32_t)depth) s.flags |= FLAG_IS_DEAD;
       if (dead(s)) {
@@ -922,7 +1087,7 @@ mega_regen_kernel(Tables tb, const float* __restrict__ xy,
       }
     }
     // 4. trace every lane
-    stage_trace(tb, s, bcnt == 0u);
+    stage_trace(tb, s, bcnt == 0u, stack);
   }
   float* f = sf_out + i;
   const float vals[RF_NROWS] = {
@@ -937,63 +1102,76 @@ mega_regen_kernel(Tables tb, const float* __restrict__ xy,
   const uint32_t uvals[RU_NROWS] = {s.rngx, s.rngy, s.flags, ndone, bcnt};
 #pragma unroll
   for (int j = 0; j < RU_NROWS; ++j) su_out[(size_t)j * n + i] = uvals[j];
+  HC3_FLUSH(s);
 }
 
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
-inline Tables tables(const void* woop, const void* shade, const void* mat,
-                     const void* light, const void* tex, const void* consts,
-                     const void* texels, int n_tris, int n_texels,
-                     int textured) {
-  return Tables{static_cast<const float4*>(woop),
-                static_cast<const float*>(shade),
-                static_cast<const float*>(mat),
-                static_cast<const float*>(light),
-                static_cast<const float*>(tex),
-                static_cast<const float*>(consts),
-                static_cast<const float4*>(texels), n_tris, n_texels,
-                textured};
+inline Tables tables(const void* const* t, int n_texels, int textured) {
+  return Tables{static_cast<const float4*>(t[0]),
+                static_cast<const float4*>(t[1]),
+                static_cast<const int*>(t[2]),
+                static_cast<const float*>(t[3]),
+                static_cast<const float4*>(t[4]),
+                static_cast<const float4*>(t[5]),
+                static_cast<const float*>(t[6]),
+                static_cast<const float*>(t[7]),
+                static_cast<const float4*>(t[8]), n_texels, textured};
 }
 
 }  // namespace
 
-extern "C" int hc3_mega_sample(const void* woop, const void* shade,
-                               const void* mat, const void* light,
-                               const void* tex, const void* consts,
-                               const void* texels, int n_tris, int n_texels,
-                               int textured, const void* xy, const void* su_in,
-                               int depth, int n, void* contrib, void* su_out,
-                               void* stream) {
+// The tables, in this order: nodes, rows, index (the pack's wide BVH,
+// accel/wide_bvh.py, whose walk needs `stack` entries per lane: refused
+// beyond MEGA_STACK), shade, mat, light, tex, consts, texels (the pack's
+// other tables, models/megakernel.py).
+extern "C" int hc3_mega_sample(const void* const* tabs, int stack,
+                               int n_texels, int textured, const void* xy,
+                               const void* su_in, int depth, int n,
+                               void* contrib, void* su_out, void* stream) {
+  if (stack < 0 || stack > MEGA_STACK)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0)
     mega_sample_kernel<<<blocks(n), BLOCK, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        tables(woop, shade, mat, light, tex, consts, texels, n_tris, n_texels,
-               textured),
-        static_cast<const float*>(xy), static_cast<const long long*>(su_in),
-        depth, n, static_cast<float*>(contrib),
+        tables(tabs, n_texels, textured), static_cast<const float*>(xy),
+        static_cast<const long long*>(su_in), depth, n,
+        static_cast<float*>(contrib), static_cast<long long*>(su_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hc3_mega_regen(const void* const* tabs, int stack,
+                              int n_texels, int textured, const void* xy,
+                              const void* sf_in, const void* su_in, int first,
+                              int k, int depth, int n, void* sf_out,
+                              void* su_out, void* stream) {
+  if (stack < 0 || stack > MEGA_STACK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0)
+    mega_regen_kernel<<<blocks(n), BLOCK, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        tables(tabs, n_texels, textured), static_cast<const float*>(xy),
+        static_cast<const float*>(sf_in), static_cast<const long long*>(su_in),
+        first, k, depth, n, static_cast<float*>(sf_out),
         static_cast<long long*>(su_out));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hc3_mega_regen(const void* woop, const void* shade,
-                              const void* mat, const void* light,
-                              const void* tex, const void* consts,
-                              const void* texels, int n_tris, int n_texels,
-                              int textured, const void* xy, const void* sf_in,
-                              const void* su_in, int first, int k, int depth,
-                              int n, void* sf_out, void* su_out, void* stream) {
-  if (n > 0)
-    mega_regen_kernel<<<blocks(n), BLOCK, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        tables(woop, shade, mat, light, tex, consts, texels, n_tris, n_texels,
-               textured),
-        static_cast<const float*>(xy), static_cast<const float*>(sf_in),
-        static_cast<const long long*>(su_in), first, k, depth, n,
-        static_cast<float*>(sf_out), static_cast<long long*>(su_out));
-  return static_cast<int>(cudaGetLastError());
+#ifdef HC3_COUNT
+extern "C" int hc3_mega_counts_reset() {
+  unsigned long long zero[3] = {0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_counts, zero, sizeof(zero)));
 }
 
-// registers per thread and local (spill) bytes of kernel `which`
+// out: 3 x u64 on the host (Woop tests, child-box tests, shades); waits for
+// the launches before it
+extern "C" int hc3_mega_counts_read(void* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_counts, 3 * sizeof(unsigned long long)));
+}
+#endif
+
+// registers per thread and local (spill and stack) bytes of kernel `which`
 // (0: mega_sample_kernel, 1: mega_regen_kernel)
 extern "C" int hc3_mega_attrs(int which, int* out) {
   cudaFuncAttributes a;

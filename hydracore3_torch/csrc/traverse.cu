@@ -120,6 +120,31 @@ __device__ unsigned long long g_counts[4];
 #define HC3_FLUSH
 #endif
 
+// (a*x + b*y) + c*z with each product and sum rounded on its own, as the
+// plain torch versions compute it: __fmul_rn/__fadd_rn are never contracted
+// into FMAs, whatever nvcc's -fmad setting
+__device__ __forceinline__ float dot3_rn(float4 m, float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(m.x, x), __fmul_rn(m.y, y)),
+                   __fmul_rn(m.z, z));
+}
+
+// t, u, v of ray r against one triangle's Woop rows w[0..2], op for op the
+// arithmetic of traverse_stream.intersect_plain (po = M o + w, pd = M d,
+// t = -po_z / pd_z, u = po_x + t pd_x, v = po_y + t pd_y), so a kernel's t
+// has the plain version's bits and equal t compare equal.  An all-zero row
+// gives t = NaN.
+__device__ __forceinline__ void woop_tuv(const Ray& r,
+                                         const float4* __restrict__ w,
+                                         float& t, float& u, float& v) {
+  float4 wx = w[0], wy = w[1], wz = w[2];
+  float po_z = __fadd_rn(dot3_rn(wz, r.ox, r.oy, r.oz), wz.w);
+  t = -po_z / dot3_rn(wz, r.dx, r.dy, r.dz);
+  u = __fadd_rn(__fadd_rn(dot3_rn(wx, r.ox, r.oy, r.oz), wx.w),
+                __fmul_rn(t, dot3_rn(wx, r.dx, r.dy, r.dz)));
+  v = __fadd_rn(__fadd_rn(dot3_rn(wy, r.ox, r.oy, r.oz), wy.w),
+                __fmul_rn(t, dot3_rn(wy, r.dx, r.dy, r.dz)));
+}
+
 // Woop test of triangles [base, base + count) (rows of 3 float4), for K6.
 // Returns true on the first valid triangle under ANY_HIT.
 template <bool ANY_HIT>
@@ -129,15 +154,8 @@ __device__ __forceinline__ bool cluster(const Ray& r,
                                         Best& best HC3_COUNTS_PARAM) {
   for (int k = 0; k < count; ++k) {
     HC3_TICK(tri);
-    const float4* w = woop + 3 * (base + k);
-    float4 wx = w[0], wy = w[1], wz = w[2];
-    float po_z = wz.x * r.ox + wz.y * r.oy + wz.z * r.oz + wz.w;
-    float pd_z = wz.x * r.dx + wz.y * r.dy + wz.z * r.dz;
-    float t = -po_z / pd_z;
-    float u = (wx.x * r.ox + wx.y * r.oy + wx.z * r.oz + wx.w)
-              + t * (wx.x * r.dx + wx.y * r.dy + wx.z * r.dz);
-    float v = (wy.x * r.ox + wy.y * r.oy + wy.z * r.oz + wy.w)
-              + t * (wy.x * r.dx + wy.y * r.dy + wy.z * r.dz);
+    float t, u, v;
+    woop_tuv(r, woop + 3 * (base + k), t, u, v);
     bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
                  (t > r.tmin) && (t < best.t);
     if (valid) {
@@ -281,14 +299,16 @@ extern "C" int hc3_intersect_stream(
 // the grid tables (cell_tab, cell_cl, cl_aabb, outliers) of
 // accel/traverse_dda.py's GridPack; nodes / rows / index / cl_root: the
 // pack_wide_stream table, whose walk from a cluster's root needs `cl_stack`
-// entries (refused beyond MARCH_STACK); the rays as hc3_intersect_stream
-// takes them; out_tri is int64, out_un int32
+// entries (refused beyond MARCH_STACK) and whose boxes are widened by
+// `margin` (the cluster boxes are widened by it too); the rays as
+// hc3_intersect_stream takes them; out_tri is int64, out_un int32
 extern "C" int hc3_intersect_march(
     const void* cell_tab, const void* cell_cl, const void* cl_aabb,
     const void* outliers, int n_outliers, const void* nodes,
     const void* rows, const void* index, const void* cl_root, int cl_stack,
-    const void* pos, const void* dir, const void* tmin, const void* tmax,
-    float tmax_cap, int n, float lo0, float lo1, float lo2, float h0,
+    float margin, const void* pos, const void* dir, const void* tmin,
+    const void* tmax, float tmax_cap, int n, float lo0, float lo1, float lo2,
+    float h0,
     float h1, float h2, int d0, int d1, int d2, int max_iter, void* out_t,
     void* out_tri, void* out_u, void* out_v, void* out_un, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -301,7 +321,8 @@ extern "C" int hc3_intersect_march(
         static_cast<const int4*>(outliers), n_outliers,
         static_cast<const float4*>(nodes), static_cast<const float4*>(rows),
         static_cast<const int*>(index), static_cast<const int*>(cl_root),
-        static_cast<const float*>(pos), static_cast<const float*>(dir),
+        margin, static_cast<const float*>(pos),
+        static_cast<const float*>(dir),
         static_cast<const float*>(tmin), static_cast<const float*>(tmax),
         tmax_cap, n, lo0, lo1, lo2, h0, h1, h2, d0, d1, d2, max_iter,
         static_cast<float*>(out_t), static_cast<long long*>(out_tri),

@@ -15,7 +15,10 @@
 //    _march_kernel (wrapper intersect_march): outliers first, then the
 //    integer 3D-DDA over the grid; at a cluster whose box (inclusive, against
 //    the best t) the ray enters, a walk of that cluster's subtree of the same
-//    table from cl_root[slot], with a stack of MARCH_STACK entries.
+//    table from cl_root[slot], with a stack of MARCH_STACK entries.  The
+//    cluster boxes are widened by the table's margin, as its own boxes are
+//    (accel/wide_bvh.py MARGIN_REL), so no rounding of a box test settles a
+//    tie on a box's face.
 //  * intersect_clusters_kernel<ANY_HIT> replaces hydracore3_tpu/accel/
 //    traverse_pallas.py:_kernel (wrapper intersect_clusters): nearest hit
 //    (t, tri, u, v) or any-hit over (v0, e1, e2) rows tested with
@@ -171,21 +174,14 @@ __device__ __forceinline__ bool walk_wide(const float4* __restrict__ nodes,
 
 // ---- Woop rows: the test, and the streamed scenes' leaf ---------------------
 
-// t, u, v of ray r against one triangle's Woop rows w[0..2], the arithmetic
-// of traverse_stream.intersect_plain; true when the hit lies inside the
-// triangle (u >= 0, v >= 0, u + v <= 1) beyond r.tmin.  An all-zero row gives
+// t, u, v of ray r against one triangle's Woop rows w[0..2] (woop_tuv, the
+// plain version's rounding); true when the hit lies inside the triangle
+// (u >= 0, v >= 0, u + v <= 1) beyond r.tmin.  An all-zero row gives
 // t = NaN and is rejected.
 __device__ __forceinline__ bool woop_test(const Ray& r,
                                           const float4* __restrict__ w,
                                           float& t, float& u, float& v) {
-  float4 wx = w[0], wy = w[1], wz = w[2];
-  float po_z = wz.x * r.ox + wz.y * r.oy + wz.z * r.oz + wz.w;
-  float pd_z = wz.x * r.dx + wz.y * r.dy + wz.z * r.dz;
-  t = -po_z / pd_z;
-  u = (wx.x * r.ox + wx.y * r.oy + wx.z * r.oz + wx.w)
-      + t * (wx.x * r.dx + wx.y * r.dy + wx.z * r.dz);
-  v = (wy.x * r.ox + wy.y * r.oy + wy.z * r.oz + wy.w)
-      + t * (wy.x * r.dx + wy.y * r.dy + wy.z * r.dz);
+  woop_tuv(r, w, t, u, v);
   return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > r.tmin);
 }
 
@@ -267,7 +263,7 @@ intersect_march_kernel(const int4* __restrict__ cell_tab,
                        const float4* __restrict__ nodes,
                        const float4* __restrict__ rows,
                        const int* __restrict__ index,
-                       const int* __restrict__ cl_root,
+                       const int* __restrict__ cl_root, float margin,
                        const float* __restrict__ pos,
                        const float* __restrict__ dir,
                        const float* __restrict__ tmin,
@@ -288,10 +284,14 @@ intersect_march_kernel(const int4* __restrict__ cell_tab,
   auto leaf = [&](int ref) -> bool {
     return woop_leaf<false>(r, rows, index, ref, best HC3_COUNTS_ARG);
   };
-  // a cluster: its box against the best t, then its subtree near-first
+  // a cluster: its box (widened by the table's margin, as its subtree's
+  // boxes are) against the best t, then its subtree near-first
   auto visit = [&](int slot) {
     HC3_TICK(slab);
-    if (slab(r, cl_aabb[2 * slot], cl_aabb[2 * slot + 1], best.t)) {
+    float4 a = cl_aabb[2 * slot], b = cl_aabb[2 * slot + 1];
+    a.x -= margin; a.y -= margin; a.z -= margin;
+    a.w += margin; b.x += margin; b.y += margin;
+    if (slab(r, a, b, best.t)) {
       int sp = 0;
       walk_wide(nodes, r, cl_root[slot], sp, best, leaf,
                 march_stack HC3_COUNTS_ARG);
@@ -454,13 +454,6 @@ intersect_clusters_kernel(const float4* __restrict__ nodes,
 }
 
 // ---- two-level: a TLAS over instances, per-mesh trees, Woop rows ----------
-
-// M (3x4 rows m0..m2) applied as ((a*x + b*y) + c*z) [+ w], each operation
-// rounded on its own, as the plain torch version computes it
-__device__ __forceinline__ float dot3_rn(float4 m, float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(m.x, x), __fmul_rn(m.y, y)),
-                   __fmul_rn(m.z, z));
-}
 
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(BLOCK)

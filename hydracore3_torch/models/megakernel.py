@@ -2,13 +2,13 @@
 
 The counterpart of ``hydracore3_tpu/models/megakernel.py``.  A scene of at
 most 4096 triangles whose features ``supported`` admits is rendered one
-whole sample per lane: camera ray, then per bounce a brute Woop trace over
-every triangle, next-event estimation (light sample, shadow any-hit,
-material eval), a material sample and the next ray; then the flat
-environment on a miss and the contribution.  ``regen`` mode keeps lanes
-persistent instead: a lane whose path dies flushes the sample into its own
-accumulator and starts the next sample of its pixel at once, and the frame
-is normalized by each pixel's completed-sample count.
+whole sample per lane: camera ray, then per bounce a nearest-hit trace,
+next-event estimation (light sample, shadow any-hit, material eval), a
+material sample and the next ray; then the flat environment on a miss and
+the contribution.  ``regen`` mode keeps lanes persistent instead: a lane
+whose path dies flushes the sample into its own accumulator and starts the
+next sample of its pixel at once, and the frame is normalized by each
+pixel's completed-sample count.
 
 The module has the JAX module's names.  The stage functions
 (``stage_init``, ``stage_trace``, ``stage_nee``, ``stage_next_bounce``,
@@ -17,10 +17,13 @@ functions) work on component-major planes: a per-lane scalar is an ``[N]``
 tensor and a vector an ``[k, N]`` one, with the JAX module's arithmetic in
 its order, so the plain versions ``sample_pass_plain`` and
 ``regen_iters_plain`` agree with ``sample_pass_ref`` and the regen kernels
-lane by lane.  The wrappers ``sample_pass`` and ``regen_pass`` run those
-plain versions for CPU tensors and launch the hand-written CUDA kernels of
-``csrc/megakernel.cu`` for CUDA tensors (or raise).  RNG states and flags
-are int64 tensors holding uint32 values (``ops/rng.py``).
+lane by lane.  Their trace is the contract's brute Woop trace over every
+triangle (``_trace_blocks``).  The wrappers ``sample_pass`` and
+``regen_pass`` run those plain versions for CPU tensors and launch the
+hand-written CUDA kernels of ``csrc/megakernel.cu`` for CUDA tensors (or
+raise); the kernels walk the pack's wide BVH (``wide_table``) instead of
+testing every triangle and return the brute trace's hits bit for bit.  RNG
+states and flags are int64 tensors holding uint32 values (``ops/rng.py``).
 
 What the slice covers (``why_unsupported`` names the rest): the MIS
 integrator in RGB, GLTF materials (lambert, lambert|metal, metal, the
@@ -48,6 +51,7 @@ from ..bsdf.common import (fresnel_slick, fr_dielectric_pbrt,
 from ..utils.lmath import (safe_sqrt, pdf_a_to_w,
                            mis_weight_heuristic as mis_weight)
 from ..accel import traverse_stream as TST
+from ..accel import wide_bvh as WB
 from ..scene.build import (MAT_TYPE_GLTF, MAT_TYPE_LIGHT_SOURCE,
                            MTYPE_SMALL_LIGHT, GLTF_COMPONENT_METAL,
                            GLTF_FLOAT_MI_FDR_INT, GLTF_FLOAT_ALPHA,
@@ -81,7 +85,8 @@ MF_TEXID = 22
 MF_TEXC = 23         # folded slot-0 texel          (4)
 MF_ROW0 = 27         # slot-0 uv transform row 0    (4)
 MF_ROW1 = 31         # slot-0 uv transform row 1    (4)
-MF_NROWS = 37        # (35, 36: the spectral SPD ids, unused here)
+MF_NROWS = 40        # (35, 36: the spectral SPD ids, unused here; 37-39
+#                      pad the row to whole float4s, which K1 loads)
 
 # light table columns ([128, LF_NROWS] f32)
 LF_POS = 0           # 3
@@ -93,7 +98,7 @@ LF_PDFA = 21
 LF_MULT = 22
 LF_GEOM = 23
 LF_DIST = 24
-LF_NROWS = 26        # (25: the spectral SPD id, unused here)
+LF_NROWS = 28        # (25: the spectral SPD id, unused here; 26-27 pad)
 
 # texture slot table columns ([128, TF_NROWS] f32)
 TF_OFF, TF_W, TF_H, TF_FILT, TF_AU, TF_AV, TF_NROWS = range(7)
@@ -258,6 +263,33 @@ class MegaPack:
     texels: torch.Tensor   # [P, 4] f32 texture pool
     n_tris: int            # Tpad
     tex_const: bool        # every slot-0 tap folds to MF_TEXC
+    # what K1's trace walks (``wide_table``): 4-wide nodes over leaves of at
+    # most 4 of the real triangles' Woop rows; None when the pack was made
+    # without the soup, and the card then refuses the pack
+    wide: WB.WidePack | None = None
+
+
+# K1 walks the pack's wide BVH in place of the brute trace and must return
+# the brute trace's hit on every lane: its boxes are widened by
+# wide_bvh.box_margin (the reason is stated at wide_bvh.MARGIN_REL).
+MEGA_STACK = 32        # stack entries per lane the kernel provides
+
+
+def wide_table(v0, e1, e2, woop) -> WB.WidePack:
+    """K1's wide BVH over a soup's T real triangles (v0, e1, e2 [T, 3], the
+    contract's order) and its Woop rows ``woop`` ([>= T, 12], the pack's):
+    ``rows`` are ``woop[index]`` bit for bit, padding rows appear nowhere,
+    and every child box is widened by ``wide_bvh.box_margin``."""
+    v0, e1, e2 = (np.asarray(a, np.float32) for a in (v0, e1, e2))
+    T = len(v0)
+    fine = WB._fine_bvh(v0, e1, e2)
+    nodes, stack = WB.collapse(fine)
+    margin = WB.box_margin(v0, e1, e2)
+    WB.widen_boxes(nodes, margin)
+    index = fine.order.astype(np.int32)
+    rows = np.asarray(woop, np.float32).reshape(-1, 12)[:T][index]
+    return WB.WidePack(nodes=nodes, rows=np.ascontiguousarray(rows),
+                       index=index, stack=stack, woop=True, margin=margin)
 
 
 def why_unsupported(scene, meta, integrator: str = 'mispt'):
@@ -371,28 +403,41 @@ def pack(scene, meta) -> MegaPack:
     def d(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
+    wide = wide_table(v0, scene.tri_e1.cpu().numpy(),
+                      scene.tri_e2.cpu().numpy(), W.reshape(Tpad, 12))
     return MegaPack(woop=d(W.reshape(Tpad, 12)), shade=d(sh), mat=d(ml),
                     light=d(ll), tex=d(tl), consts=d(consts),
                     texels=tp.texels.to(torch.float32).contiguous(),
-                    n_tris=Tpad, tex_const=bool(meta.tex0_all_const))
+                    n_tris=Tpad, tex_const=bool(meta.tex0_all_const),
+                    wide=wide.to(dev))
 
 
 def pack_from_numpy(arrays: dict, device='cpu') -> MegaPack:
     """The JAX ``MegaPack``'s tables as numpy (``wx``, ``wy``, ``wz``,
     ``shade_t``, ``mat_lane``, ``light_lane``, ``tex_lane``, ``consts``),
     the JAX scene's f32 texel pool (``texels``) and the pack's ``n_tris``
-    and ``tex_const``, into the port's pack on ``device``."""
+    and ``tex_const``, into the port's pack on ``device``.  With the JAX
+    scene's soup (``tri_v0``, ``tri_e1``, ``tri_e2``, its real triangles)
+    the pack also gets the wide table K1 walks, so it runs on the card."""
     def d(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
+    def cols(a, n):        # the JAX rows as columns, padded to n
+        a = np.asarray(a, np.float32).T
+        return np.pad(a, ((0, 0), (0, n - a.shape[1])))
+
     woop = np.concatenate([arrays['wx'], arrays['wy'], arrays['wz']], axis=1)
+    wide = None
+    if 'tri_v0' in arrays:
+        wide = wide_table(arrays['tri_v0'], arrays['tri_e1'],
+                          arrays['tri_e2'], woop).to(device)
     return MegaPack(woop=d(woop), shade=d(np.asarray(arrays['shade_t']).T),
-                    mat=d(np.asarray(arrays['mat_lane'])[:MF_NROWS].T),
-                    light=d(np.asarray(arrays['light_lane'])[:LF_NROWS].T),
+                    mat=d(cols(arrays['mat_lane'], MF_NROWS)),
+                    light=d(cols(arrays['light_lane'], LF_NROWS)),
                     tex=d(np.asarray(arrays['tex_lane']).T),
                     consts=d(arrays['consts']), texels=d(arrays['texels']),
                     n_tris=int(arrays['n_tris']),
-                    tex_const=bool(arrays['tex_const']))
+                    tex_const=bool(arrays['tex_const']), wide=wide)
 
 
 # ===========================================================================
@@ -980,50 +1025,85 @@ _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _lib = None
 
 
+def load_library(defines=(), source=_CU_SRC):
+    """Compile (unless already built) and load ``source`` (by default
+    ``csrc/megakernel.cu``) with the given ``-D`` macros; returns (library,
+    seconds spent compiling).  No macro gives the library the wrappers
+    launch; ``HC3_COUNT`` the measuring variant, whose kernels sum every
+    lane's Woop tests, child-box tests and shades into three counters that
+    ``hc3_mega_counts_reset()`` zeroes and ``hc3_mega_counts_read(ptr to 3
+    u64)`` copies out."""
+    name = '-'.join(['megakernel', *defines]).lower()
+    path, secs = build_shared_library(
+        name, [source], [TST._nvcc()] + _NVCC_FLAGS
+        + [f'-D{d}' for d in defines])
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hc3_mega_sample.restype = i
+    lib.hc3_mega_sample.argtypes = [p, i, i, i, p, p, i, i, p, p, p]
+    lib.hc3_mega_regen.restype = i
+    lib.hc3_mega_regen.argtypes = [p, i, i, i, p, p, p, i, i, i, i, p, p, p]
+    lib.hc3_mega_attrs.restype = i
+    lib.hc3_mega_attrs.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    if 'HC3_COUNT' in defines:
+        lib.hc3_mega_counts_reset.restype = i
+        lib.hc3_mega_counts_reset.argtypes = []
+        lib.hc3_mega_counts_read.restype = i
+        lib.hc3_mega_counts_read.argtypes = [p]
+    return lib, secs
+
+
 def build_kernels() -> float:
     """Compile (at first use) and load ``csrc/megakernel.cu``; returns the
     seconds spent compiling (0 when already built or loaded)."""
     global _lib
     if _lib is not None:
         return 0.0
-    path, secs = build_shared_library('megakernel', [_CU_SRC],
-                                      [TST._nvcc()] + _NVCC_FLAGS)
-    lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    tables = [p] * 7
-    lib.hc3_mega_sample.restype = i
-    lib.hc3_mega_sample.argtypes = tables + [i, i, i, p, p, i, i, p, p, p]
-    lib.hc3_mega_regen.restype = i
-    lib.hc3_mega_regen.argtypes = (tables + [i, i, i, p, p, p, i, i, i, i]
-                                   + [p, p, p])
-    lib.hc3_mega_attrs.restype = i
-    lib.hc3_mega_attrs.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    _lib = lib
+    _lib, secs = load_library()
     return secs
 
 
-def kernel_attrs() -> dict:
-    """Registers per thread and local (spill) bytes of both kernels, as
-    the loaded module reports them."""
-    build_kernels()
+def kernel_attrs(lib=None) -> dict:
+    """Registers per thread and local (stack and spill) bytes of both
+    kernels, as the loaded library (the shipped one by default) reports
+    them."""
+    if lib is None:
+        build_kernels()
+        lib = _lib
     out = {}
     for k, name in enumerate(('mega_sample_kernel', 'mega_regen_kernel')):
         v = (ctypes.c_int * 2)()
-        TST.launch_checked(name, _lib.hc3_mega_attrs(k, v))
+        TST.launch_checked(name, lib.hc3_mega_attrs(k, v))
         out[name] = dict(registers=v[0], local_bytes=v[1])
     return out
 
 
 def _device_args(name, pk: MegaPack, xy, dev):
+    """The pack's tables as the C entry points take them (an array of
+    pointers), after the checks: every table on the lanes' card,
+    contiguous and of the kernel's dtype, and the wide table present with
+    a stack the kernel provides."""
+    if pk.wide is None:
+        raise ValueError(f'{name}: a pack on the card needs its wide table '
+                         '(pack(), or pack_from_numpy with the soup)')
+    WB.require_stack(name, pk.wide.stack, MEGA_STACK)
+    w = pk.wide
     TST.check_cuda_inputs(name, dict(
-        woop=(pk.woop, torch.float32), shade=(pk.shade, torch.float32),
-        mat=(pk.mat, torch.float32), light=(pk.light, torch.float32),
-        tex=(pk.tex, torch.float32), consts=(pk.consts, torch.float32),
-        texels=(pk.texels, torch.float32), xy=(xy, torch.float32)), dev)
+        woop=(pk.woop, torch.float32), nodes=(w.nodes, torch.float32),
+        rows=(w.rows, torch.float32), index=(w.index, torch.int32),
+        shade=(pk.shade, torch.float32), mat=(pk.mat, torch.float32),
+        light=(pk.light, torch.float32), tex=(pk.tex, torch.float32),
+        consts=(pk.consts, torch.float32), texels=(pk.texels, torch.float32),
+        xy=(xy, torch.float32)), dev)
+    if tuple(pk.mat.shape[1:]) != (MF_NROWS,) or \
+            tuple(pk.light.shape[1:]) != (LF_NROWS,):
+        raise ValueError(f'{name}: mat / light rows must have {MF_NROWS} / '
+                         f'{LF_NROWS} columns')
     if xy.dim() != 2 or xy.shape[0] != 2:
         raise ValueError(f'{name}: xy must be [2, N], got {tuple(xy.shape)}')
-    return [t.data_ptr() for t in (pk.woop, pk.shade, pk.mat, pk.light,
-                                   pk.tex, pk.consts, pk.texels)]
+    return (ctypes.c_void_p * 9)(*(t.data_ptr() for t in (
+        w.nodes, w.rows, w.index, pk.shade, pk.mat, pk.light, pk.tex,
+        pk.consts, pk.texels)))
 
 
 def _u32_rows(name, su, rows, n, dev):
@@ -1050,7 +1130,7 @@ def sample_pass(pk: MegaPack, xy, su, depth: int):
     su_out = torch.empty((3, n), dtype=torch.int64, device=dev)
     if n > 0:
         rc = _lib.hc3_mega_sample(
-            *tables, pk.n_tris, pk.texels.shape[0], int(not pk.tex_const),
+            tables, pk.wide.stack, pk.texels.shape[0], int(not pk.tex_const),
             xy.data_ptr(), su_in.data_ptr(), depth, n, contrib.data_ptr(),
             su_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         TST.launch_checked('sample_pass', rc)
@@ -1086,7 +1166,7 @@ def regen_pass(pk: MegaPack, xy, sf, su, k: int, depth: int,
     su_out = torch.empty((RU_NROWS, n), dtype=torch.int64, device=dev)
     if n > 0 and k > 0:
         rc = _lib.hc3_mega_regen(
-            *tables, pk.n_tris, pk.texels.shape[0], int(not pk.tex_const),
+            tables, pk.wide.stack, pk.texels.shape[0], int(not pk.tex_const),
             xy.data_ptr(), sf_in.data_ptr(), su_in.data_ptr(), int(first), k,
             depth, n, sf_out.data_ptr(), su_out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -255,10 +255,30 @@ def _quad(p0, p1, p2, p3):
                                                             [0, 2, 3]])
 
 
+def _grid_quad(p0, p1, p2, p3, n):
+    """The parallelogram p0 p1 p2 p3 cut into an n x n grid of quads, two
+    triangles each, wound as ``_quad``'s; n = 1 is ``_quad`` itself."""
+    if n == 1:
+        return _quad(p0, p1, p2, p3)
+    p0, p1, p3 = (np.asarray(p, np.float64) for p in (p0, p1, p3))
+    a = np.arange(n + 1) / n
+    pos = (p0 + a[:, None, None] * (p1 - p0)
+           + a[None, :, None] * (p3 - p0)).reshape(-1, 3)
+    i, j = (g.reshape(-1) for g in np.meshgrid(np.arange(n), np.arange(n),
+                                               indexing='ij'))
+    c00, c10 = i * (n + 1) + j, (i + 1) * (n + 1) + j
+    c11, c01 = c10 + 1, c00 + 1
+    ind = np.stack([np.stack([c00, c10, c11], 1),
+                    np.stack([c00, c11, c01], 1)], 1).reshape(-1, 3)
+    return pos.astype(np.float32), ind
+
+
 def build_box(width: int = 64, height: int = 48, depth: int = 4,
-              textured: bool = False) -> B.SceneDesc:
+              textured: bool = False, wall_subdiv: int = 1) -> B.SceneDesc:
     """The box description (what tests/jax_box.py commits through the JAX
-    package's API)."""
+    package's API).  ``wall_subdiv`` cuts each of the five walls into a
+    grid of that many quads a side (a test scene for the megakernel's
+    trace: 20 gives 4,006 triangles); 1 is the box itself."""
     sd = B.SceneDesc(width=width, height=height, trace_depth=depth, spp=8)
     sd.materials += [B.MaterialDesc(name='white', diffuse_color=(0.5, 0.5,
                                                                  0.5)),
@@ -289,10 +309,10 @@ def build_box(width: int = 64, height: int = 48, depth: int = 4,
         texc = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
         quads += [(pts, tmat, texc),
                   (pts + np.float32([2.5, 0.0, 1.0]), tmat + 1, texc)]
-    for pts, mat, texc in quads:
-        pos, ind = _quad(*pts)
+    for k, (pts, mat, texc) in enumerate(quads):
+        pos, ind = _grid_quad(*pts, wall_subdiv if k < 5 else 1)
         sd.meshes.append(B.MeshDesc(pos=pos, indices=ind,
-                                    mat_indices=np.array([mat, mat]),
+                                    mat_indices=np.full(len(ind), mat),
                                     texc=texc))
         sd.instances.append((len(sd.meshes) - 1, None))
     lmat = np.eye(4, dtype=np.float32)
@@ -315,8 +335,8 @@ def build_box(width: int = 64, height: int = 48, depth: int = 4,
 
 
 def box_scene(width: int = 64, height: int = 48, depth: int = 4,
-              textured: bool = False, device=None):
+              textured: bool = False, wall_subdiv: int = 1, device=None):
     """Build the box on ``device`` (None: the CUDA card); returns
     (scene, meta)."""
-    return B.build_scene(build_box(width, height, depth, textured),
-                         device=device)
+    return B.build_scene(build_box(width, height, depth, textured,
+                                   wall_subdiv), device=device)

@@ -103,7 +103,7 @@ def build(defines=()):
     lib = ctypes.CDLL(path)
     p, i, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hc3_intersect_stream.argtypes = [p] * 7 + [f_, i, i, i] + [p] * 5
-    lib.hc3_intersect_march.argtypes = ([p] * 4 + [i] + [p] * 4 + [i]
+    lib.hc3_intersect_march.argtypes = ([p] * 4 + [i] + [p] * 4 + [i, f_]
                                         + [p] * 4 + [f_, i] + [f_] * 6
                                         + [i] * 4 + [p] * 6)
     return lib
@@ -142,7 +142,7 @@ def k3(lib, g, w, q):
     rc = lib.hc3_intersect_march(
         *map(ptr, (g.cell_tab, g.cell_cl, g.cl_aabb, g.outliers)),
         g.n_outliers, *map(ptr, (w.nodes, w.rows, w.index, w.cl_root)),
-        w.cl_stack, *map(ptr, (pos, d, tmin, tmax)), TST.T_MAX_CAP, n,
+        w.cl_stack, w.margin, *map(ptr, (pos, d, tmin, tmax)), TST.T_MAX_CAP, n,
         *g.lo, *g.h, d0, d1, d2, 4 * (d0 + d1 + d2) + 64,
         *map(ptr, (t, tri, u, v, un)), None)
     assert rc == 0, rc

@@ -5,15 +5,19 @@ tests/test_torch_kernels_cuda.py -q`` (this file imports nothing of JAX, and
 ``--noconftest`` skips tests/conftest.py, which does).  Without a card every
 test skips (the check happens inside the ``cuda`` fixture, never at
 import).  Agreement bars: the ray-query kernels' (K2-K6) hit masks equal on
->= 99.9% of rays, t within rtol 2e-4 where both hit (nvcc contracts the Woop
-and Moller-Trumbore arithmetic into FMAs, so equal-t ties and knife-edge
-lanes may differ), the two-level kernel's instance ids equal wherever the
-triangle is; the wide-BVH kernels (K2-K5) return the triangle that
+>= 99.9% of rays, t within rtol 2e-4 where both hit (nvcc contracts the
+Moller-Trumbore arithmetic into FMAs, so knife-edge lanes may differ), the
+two-level kernel's instance ids equal wherever the triangle is; the
+wide-BVH kernels (K2-K5) return the triangle that
 ``wide_bvh.walk_wide_plain``, their walk in plain torch, returns on >= 99.9%
-of both-hit lanes; the K1 megakernel entry
-points on every lane: RNG, flags and counts equal and the f32 rows within
-``megakernel.KERNEL_TOL`` (built without FMA contraction; rsqrtf, sinf and
-cosf are the card's, as in torch's own CUDA ops).
+of both-hit lanes.  The Woop tests of K2, K3 and K6 round as the plain
+version's, so on rays through the shared edges of a sheet K2 and K3 equal
+the plain version and K6 its plain rounds on every lane, t, u, v and
+triangle; at a tie on a cell face K3 and K6 keep the march's stop rule.
+K1's entry points on every lane, on the box and the tessellated box: RNG,
+flags and counts equal and the f32 rows within ``megakernel.KERNEL_TOL``
+(built without FMA contraction; rsqrtf, sinf and cosf are the card's, as
+in torch's own CUDA ops).
 """
 import dataclasses
 
@@ -513,10 +517,10 @@ def test_slice_on_card_matches_cpu(cuda):
     assert (f_gpu == f_cpu).mean() >= 0.999
 
 
-def _box_on(cuda, width=128, height=96, depth=6):
+def _box_on(cuda, width=128, height=96, depth=6, wall_subdiv=1):
     from hydracore3_torch.scene import synth
     scene, meta = synth.box_scene(width, height, depth, textured=True,
-                                  device=cuda)
+                                  wall_subdiv=wall_subdiv, device=cuda)
     pk = TMK.pack(scene, meta)
     xy, su = TMK.lane_setup(meta, cuda)
     return pk, xy, su, depth
@@ -664,3 +668,182 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         TMK.regen_pass(pk, xy, sf[:10], su2, 4, depth)
     assert (TMK.sample_pass.launches, TMK.regen_pass.launches) == (
         n[0], n[1] + 1)
+
+
+@pytest.mark.parametrize('regen', [False, True])
+def test_mega_kernels_match_plain_on_tessellated_box(cuda, regen):
+    """Both K1 entry points on the box whose walls are 20 x 20 grids (4,006
+    triangles, shared edges everywhere): the wide walk returns the brute
+    trace's hits, so every lane equals the plain version's."""
+    pk, xy, su, depth = _box_on(cuda, 64, 48, 6, wall_subdiv=20)
+    assert pk.n_tris == 4096 and pk.wide.stack <= TMK.MEGA_STACK
+    if regen:
+        sf, su2 = TMK.regen_pass(pk, xy, None, su, 16, depth, first=True)
+        k = TMK.regen_pass(pk, xy, sf, su2, 16, depth)
+        sf_p, su_p = TMK.regen_iters_plain(pk, xy, None, su, 16, depth,
+                                           first=True)
+        p = TMK.regen_iters_plain(pk, xy, sf_p, su_p, 16, depth)
+        rows = TMK.RU_NROWS
+    else:
+        k = TMK.sample_pass(pk, xy, su, depth)
+        p = TMK.sample_pass_plain(pk, xy, su, depth)
+        rows = 3
+    torch.cuda.synchronize()
+    close, equal, err = TMK.lanes_agree(k, p, rows)
+    assert close == 1.0 and equal == 1.0 and err == 0.0, (close, equal, err)
+
+
+def test_mega_wrappers_refuse_a_pack_without_its_wide_table(cuda):
+    pk, xy, su, depth = _box_on(cuda, 32, 16, 2)
+    n = TMK.sample_pass.launches, TMK.regen_pass.launches
+    with pytest.raises(ValueError, match='wide'):
+        TMK.sample_pass(dataclasses.replace(pk, wide=None), xy, su, depth)
+    with pytest.raises(ValueError, match='stack'):
+        TMK.regen_pass(dataclasses.replace(pk, wide=dataclasses.replace(
+            pk.wide, stack=TMK.MEGA_STACK + 1)), xy, None, su, 4, depth,
+            first=True)
+    with pytest.raises(ValueError):
+        TMK.sample_pass(dataclasses.replace(pk, wide=dataclasses.replace(
+            pk.wide, index=pk.wide.index.long())), xy, su, depth)
+    assert (TMK.sample_pass.launches, TMK.regen_pass.launches) == n
+
+
+def tilted_sheet(rng, n=12):
+    """An n x n grid of quads on the tilted plane z = x / 2 + y / 4, its
+    vertices jittered on a grid of 2^-6 so that every coordinate and edge
+    is exact in f32: 2 n^2 coplanar triangles whose neighbours share edges
+    exactly, in a shuffled order.  Returns the soup (v0, e1, e2), the
+    shared interior edges that no axis is orthogonal to, as (a, b) vertex
+    pairs (their inner points lie inside both triangles' boxes, not on a
+    face), and the plane's normal."""
+    g = np.arange(n + 1) * 32 - 16 * n
+    x = g[:, None] + rng.integers(-8, 9, (n + 1, n + 1))
+    y = g[None, :] + rng.integers(-8, 9, (n + 1, n + 1))
+    P = np.stack([x, y, 2 * x + y], -1) / 64.0      # z = x / 2 + y / 4
+    tris, edges = [], []
+    for i in range(n):
+        for j in range(n):
+            p00, p10, p11, p01 = (P[i, j], P[i + 1, j], P[i + 1, j + 1],
+                                  P[i, j + 1])
+            tris += [(p00, p10, p11), (p00, p11, p01)]
+            edges.append((p00, p11))                  # the quad's diagonal
+            if i + 1 < n:
+                edges.append((p10, p11))
+            if j + 1 < n:
+                edges.append((p11, p01))
+    tris = np.asarray(tris)[rng.permutation(len(tris))]
+    v0 = tris[:, 0].astype(np.float32)
+    e1 = (tris[:, 1] - tris[:, 0]).astype(np.float32)
+    e2 = (tris[:, 2] - tris[:, 0]).astype(np.float32)
+    edges = np.asarray(edges)
+    edges = edges[(edges[:, 0] != edges[:, 1]).all(1)]
+    return (v0, e1, e2), edges, np.array([0.5, 0.25, -1.0])
+
+
+def test_woop_kernels_settle_edge_ties_as_plain(cuda):
+    """Coplanar triangles sharing edges, rays through the edges: K2 nearest
+    and K3 return the dense plain version's t, u, v and triangle on every
+    lane, and K6's rounds return what its plain rounds return.  Both need
+    the kernels' Woop test to round as the plain version's does (no FMA
+    contraction): an ulp of t decides which neighbour wins."""
+    rng = np.random.default_rng(21)
+    soup, edges, normal = tilted_sheet(rng)
+    nf, ni, woop, _, grid, wide, _ = port_pack(*soup)
+    n = 4096
+    k = rng.integers(0, len(edges), n)
+    s_ = rng.uniform(0.05, 0.95, n)[:, None]
+    q = (1.0 - s_) * edges[k, 0] + s_ * edges[k, 1]
+    side = np.where(rng.random(n) < 0.5, -1.0, 1.0)[:, None]
+    org = q + side * (2.0 * normal + rng.uniform(-0.6, 0.6, (n, 3)))
+    d = q - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pos = torch.from_numpy(org.astype(np.float32))
+    d = torch.from_numpy(d.astype(np.float32))
+    tmin = torch.zeros(n)
+    tmax = torch.full((n,), IPT_FLT_MAX)
+    want = TTS.intersect_plain(torch.from_numpy(woop), pos, d, tmin,
+                               torch.clamp(tmax, max=TTS.T_MAX_CAP))
+    # the Woop test is not watertight: a ray exactly through an edge can
+    # miss both neighbours
+    assert (want[1] >= 0).float().mean() > 0.5
+    on = [x.to(cuda) for x in (pos, d, tmin, tmax)]
+    for got in (TTS.intersect_stream(None, None, None, *on,
+                                     wide=wide.to(cuda)),
+                TTD.intersect_march(grid.to(cuda), None, *on,
+                                    wide=wide.to(cuda))):
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    flat = TTD.pack_grid(nf, ni, robust_aabb=False)
+    w_t = torch.from_numpy(woop)
+    plain_rounds = TTD.intersect_dda(flat.to('cpu'), w_t, pos, d, tmin,
+                                     tmax)
+    rounds = TTD.intersect_dda(flat.to(cuda), w_t.to(cuda), *on)
+    for a, b in zip(rounds, plain_rounds):
+        assert torch.equal(a.cpu(), b)
+
+
+def face_tie_scene():
+    """Two clusters holding the same quad at x = 2, on the face between
+    cells 1 and 2 of a 4 x 1 x 1 grid of unit cells: cluster 0 (slots 0,
+    1, the lower) is listed in cell 2 alone, cluster 1 (slots 64, 65) in
+    cell 1 alone.  Rays along +x meet cluster 1 first, at t equal to the
+    cell's exit; rays along -x meet cluster 0 first.  Returns (nodes_f,
+    nodes_i, woop, soup in slot order, grid, rays (pos, dir) of both
+    directions, FlatBVH)."""
+    v0 = np.array([[2, 0.25, 0.25], [2, 0.75, 0.75]] * 2, np.float32)
+    e1 = np.array([[0, 0.5, 0], [0, -0.5, 0]] * 2, np.float32)
+    e2 = np.array([[0, 0, 0.5], [0, 0, -0.5]] * 2, np.float32)
+    lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    bvh = TB.FlatBVH(
+        bmin=np.stack([lo.min(0), lo[:2].min(0), lo[2:].min(0)]),
+        bmax=np.stack([hi.max(0), hi[:2].max(0), hi[2:].max(0)]),
+        skip=np.array([-1, 2, -1], np.int32),
+        tri_offset=np.array([0, 0, 2], np.int32),
+        tri_count=np.array([0, 2, 2], np.int32),
+        order=np.arange(4, dtype=np.int32))
+    nf, ni, woop, op = TTS.pack_stream_bvh(bvh, v0, e1, e2)
+    sel = np.maximum(op, 0)
+    soup = tuple(np.where((op < 0)[:, None], 0.0, a[sel]).astype(np.float32)
+                 for a in (v0, e1, e2))
+    cl_aabb = np.zeros((2, 8), np.float32)
+    cl_aabb[:, 0:3] = np.minimum(lo[[0, 2]], lo[[1, 3]])
+    cl_aabb[:, 3:6] = np.maximum(hi[[0, 2]], hi[[1, 3]])
+    grid = TTD.GridPack(
+        cell_tab=np.array([[0, 0, 1, 0], [0, 1, 0, 0], [1, 1, 0, 0],
+                           [2, 0, 1, 0]], np.int32),
+        cell_cl=np.array([[1, 0, 0, 0], [0, 0, 0, 0]], np.int32),
+        cl_aabb=cl_aabb, cl_count=np.array([2, 2], np.int32),
+        outliers=np.zeros((1, 4), np.int32), n_outliers=0,
+        lo=(0.0, 0.0, 0.0), h=(1.0, 1.0, 1.0), dims=(4, 1, 1))
+    rng = np.random.default_rng(2)
+    n = 256
+    yz = rng.uniform(0.3, 0.7, (n, 2)).astype(np.float32)
+    x = np.where(np.arange(n) < n // 2, 0.5, 3.5).astype(np.float32)
+    pos = np.concatenate([x[:, None], yz], 1)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 0] = np.where(np.arange(n) < n // 2, 1.0, -1.0)
+    return nf, ni, woop, soup, grid, (pos, d), bvh
+
+
+def test_march_stops_at_a_tie_on_a_cell_face_as_its_plain_rounds(cuda):
+    """K3 (and K6) at an equal-t tie on a cell face: the march stops once
+    the best t lies at the cell's exit, so a +x ray keeps cluster 1's
+    triangle and never sees the lower slot listed only in the next cell
+    (the rule the JAX march keeps, tests/test_torch_traverse.py); K3 and
+    K6 return what the port's plain rounds (``intersect_dda`` on the CPU)
+    return, t, u, v and triangle, on every lane."""
+    nf, ni, woop, soup, grid, (pos, d), _ = face_tie_scene()
+    wide = TWB.pack_wide_stream(nf, ni, woop, *soup)
+    n = pos.shape[0]
+    q = (torch.from_numpy(pos), torch.from_numpy(d), torch.zeros(n),
+         torch.full((n,), IPT_FLT_MAX))
+    w_t = torch.from_numpy(woop)
+    want = TTD.intersect_dda(grid.to('cpu'), w_t, *q)
+    assert (want[1][:n // 2] >= 64).all() and (want[1][n // 2:] < 2).all()
+    on = [x.to(cuda) for x in q]
+    march = TTD.intersect_march(grid.to(cuda), None, *on, wide=wide.to(cuda))
+    cells = TTD.intersect_dda(grid.to(cuda), w_t.to(cuda), *on)
+    for got in (march, cells):
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)

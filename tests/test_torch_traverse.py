@@ -433,3 +433,46 @@ def test_dda_keeps_hits_at_the_grid_boundary():
         torch.testing.assert_close(tri >= 0, ptri >= 0, rtol=0, atol=0)
         torch.testing.assert_close(t, pt, rtol=2e-4, atol=1e-5)
         assert (tri >= 0).float().mean() > 0.9
+
+
+def test_march_stop_rule_at_a_face_tie_is_the_reference_rule():
+    """An equal-t tie on a cell face, the lower slot listed only in the
+    next cell (``test_torch_kernels_cuda.face_tie_scene``): the JAX march
+    stops once its best t lies at the cell's exit and keeps the higher slot
+    on the rays that meet it first, and the port's march rule (the plain
+    rounds of ``intersect_dda``, which K3 and K6 are held to on the card)
+    returns the same, t, u, v and triangle, on every lane.  The dense plain
+    version, which the port's ``intersect_march`` is on the CPU, returns the
+    lower slot there: a deviation from the contract's lowest-index rule
+    that the port shares with the reference."""
+    from test_torch_kernels_cuda import face_tie_scene
+    nf, ni, woop, soup, grid, (pos, d), bvh = face_tie_scene()
+    n = pos.shape[0]
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, 1e30, np.float32)
+    v0, e1, e2 = (a[[0, 1, 64, 65]] for a in soup)     # the real slots
+    _, _, jtris, _ = JTS.pack_stream_bvh(bvh, v0, e1, e2)
+    jgrid = JTD.GridPack(
+        cell_tab=jnp.asarray(grid.cell_tab),
+        cell_cl=jnp.asarray(grid.cell_cl), cl_aabb=jnp.asarray(grid.cl_aabb),
+        outliers=jnp.asarray(grid.outliers), n_outliers=0, lo=grid.lo,
+        h=grid.h, dims=grid.dims)
+    # one call per direction: the JAX kernel tests the clusters of every
+    # cell its tile's lanes stand in against all of the tile's lanes
+    jt, jtri, ju, jv = (np.concatenate(x) for x in zip(*(
+        [np.asarray(y) for y in JTD.intersect_march(
+            jgrid, jnp.asarray(jtris), jnp.asarray(pos[h]),
+            jnp.asarray(d[h]), jnp.asarray(tmin[h]), jnp.asarray(tmax[h]),
+            interpret=True)]
+        for h in (slice(0, n // 2), slice(n // 2, n)))))
+    assert (jtri[:n // 2] >= 64).all() and (jtri[n // 2:] < 2).all()
+    q = tuple(torch.from_numpy(a) for a in (pos, d, tmin, tmax))
+    t, tri, u, v = (x.numpy() for x in TTD.intersect_dda(
+        grid.to('cpu'), torch.from_numpy(woop), *q))
+    np.testing.assert_array_equal(tri, jtri)
+    np.testing.assert_array_equal(t, jt)
+    np.testing.assert_array_equal(u, ju)
+    np.testing.assert_array_equal(v, jv)
+    dense = TTD.intersect_march(grid, torch.from_numpy(woop), *q)
+    assert (dense[1] < 2).all()
+    np.testing.assert_array_equal(dense[0].numpy(), jt)
