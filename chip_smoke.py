@@ -63,14 +63,20 @@ Phases (any failure raises and the exit code is not 0):
      ``render.render`` at 16 spp, and the same scene streamed at 16 spp:
      PSNR >= 35 dB, means within 2%;
   8. the cell-pass wavefront (K6): ``intersect_dda`` on the bench city's
-     camera and sorted first-bounce rays (nearest, against phase 3's plain
-     results) and on bounce 0's shadow rays (any-hit), over a grid without
-     outliers: rounds, lanes left live, milliseconds per round.  A round
-     keeps an equal t found in an earlier cell (the JAX cell kernel's
-     rule), so a lane that settles an equal-t tie on another triangle than
-     the dense plain version is held against K6's own plain rounds on the
-     CPU and must equal them.  No renderer path calls ``intersect_dda``,
-     so this query is its main path: its launches are counted here.
+     camera and sorted first-bounce rays (nearest) and on bounce 0's shadow
+     rays (any-hit), over a grid without outliers and ``scene.st_wide``
+     (each cluster of a lane's cell walked through its subtree, the round's
+     stepping in the kernel): every lane must equal phase 3's dense plain
+     answers (t, tri, u, v; any-hit: the hit flags) and no lane may be left
+     live; rounds, the launches' summed device time (the same rounds
+     launched through the wrapper, each behind a short spin on the card so
+     that the host's time to submit it is not counted), the whole query's
+     time, K6's registers and local bytes, its counted tests and cells per
+     ray and the bound they set (each table it reads once: the grid's cell_tab, cell_cl
+     and cl_aabb, st_wide's nodes, rows, index and cl_root), with the lane
+     state a round reads and writes printed beside it.  No renderer path
+     calls ``intersect_dda``, so this query is its main path: its launches
+     are counted here.
 Every kernel's ``bound_ms`` is the larger of its bytes (rays and outputs
 once, each table once) over 3.35 TB/s and its operations over 67 TFLOP/s
 (f32 outside the tensor cores); the ray-query kernels' operations are
@@ -885,74 +891,104 @@ def main():
                           scene.st_nodes_i.cpu().numpy(),
                           robust_aabb=False).to(dev)
     log(f'[8] intersect_dda on the bench city, grid {grid0.dims} without '
-        f'outliers ({grid0.n_outliers})')
+        f'outliers ({grid0.n_outliers}); cell_pass_kernel registers, local '
+        f'bytes: nearest {attrs[TST.KERNEL_NAMES[7]]}, any-hit '
+        f'{attrs[TST.KERNEL_NAMES[8]]}')
+    dda = lambda *q, **kw: TDD.intersect_dda(  # noqa: E731
+        grid0, None, *q, wide=wide, **kw)
 
-    def check_rounds(label, q, plain):
-        """K6 nearest against the dense plain version.  A round keeps an
-        equal t found in an earlier cell, as the JAX cell kernel does, and
-        tests a cluster's rows only when its box (not widened) is entered;
-        so a lane may settle an equal-t tie on another triangle than the
-        dense version, and then that triangle must be hit at that very t
-        by the plain Woop test (a tie, not a wrong hit)."""
+    def check_dda(label, q, plain, any_hit=False):
+        """K6 against the dense plain version on every lane: (t, tri, u, v)
+        equal (any-hit: the hit flags), and no lane left live."""
         st8 = {}
-        k = TDD.intersect_dda(grid0, woop, *q, stats=st8)
-        err = compare(f'K6 intersect_dda nearest, {label}', k, plain)
-        log(f'  nearest, {label}: {st8["rounds"]} rounds, {st8["live"]} '
-            f'lanes left live after max_rounds')
+        k = dda(*q, any_hit=any_hit, stats=st8)
+        err = compare(f'K6 intersect_dda {label}', k, plain, any_hit)
+        if any_hit:
+            other = (k[1] >= 0) != (plain[1] >= 0)
+        else:
+            other = ~((k[0] == plain[0]) & (k[1] == plain[1])
+                      & (k[2] == plain[2]) & (k[3] == plain[3]))
+        lanes = torch.nonzero(other).squeeze(1).tolist()
+        log(f'  {label}: {st8["rounds"]} launches, {st8["live"]} lanes left '
+            f'live, the launches {st8["kernel_ms"]:.3f} ms in all; lanes '
+            f'unlike the dense plain version: {len(lanes)}')
+        for i in lanes[:8]:
+            log(f'    lane {i}: K6 t {float(k[0][i])!r} tri {int(k[1][i])}, '
+                f'plain t {float(plain[0][i])!r} tri {int(plain[1][i])}')
+        if lanes:
+            DEFERRED.append(f'K6 {label}: {len(lanes)} lanes unlike the '
+                            'dense plain version')
         if st8['live']:
             raise RuntimeError(f'{st8["live"]} lanes left live by '
                                f'intersect_dda ({label})')
-        tie = torch.nonzero((k[1] >= 0) & (plain[1] >= 0) & (k[1] != plain[1])
-                            & (k[0] == plain[0])).squeeze(1).tolist()
-        for i in tie:
-            own = TST.intersect_plain(
-                woop[k[1][i]:k[1][i] + 1], *(x[i:i + 1] for x in q[:3]),
-                torch.clamp(q[3][i:i + 1], max=TST.T_MAX_CAP))
-            ok = bool(own[1][0] == 0) and bool(own[0][0] == k[0][i])
-            log(f'  {label}: equal-t lane {i}: K6 tri {int(k[1][i])}, dense '
-                f'tri {int(plain[1][i])}, t {float(k[0][i])!r}; K6\'s '
-                f'triangle is hit at that t by the plain test: {ok}')
-            if not ok:
-                raise RuntimeError(f'K6 {label}: lane {i} reports a '
-                                   'triangle not hit at its t')
         return err
 
-    errs['cell_pass'] = max(check_rounds('camera', cam_q, cam_plain),
-                            check_rounds('sorted first bounce', bounce_q,
-                                         bounce_plain))
-    stats = {}
-    k8 = TDD.intersect_dda(grid0, woop, *shadow_q, any_hit=True, stats=stats)
-    errs['cell_pass'] = max(errs['cell_pass'], compare(
-        'K6 intersect_dda any-hit, shadow', k8, shadow_plain, any_hit=True))
-    log(f'  any-hit: {stats["rounds"]} rounds, {stats["live"]} lanes left '
-        f'live, kernel launches {stats["kernel_ms"]:.3f} ms in all')
-    if stats['live']:
-        raise RuntimeError(f'{stats["live"]} lanes left live by '
-                           f'intersect_dda (any-hit)')
-    # its main path is the entry point itself: one more nearest query with
-    # the counts at 0 just before, timed as a whole and launch by launch
+    errs['cell_pass'] = max(
+        check_dda('nearest, camera', cam_q, cam_plain),
+        check_dda('nearest, sorted first bounce', bounce_q, bounce_plain),
+        check_dda('any-hit, shadow', shadow_q, shadow_plain, any_hit=True))
+    # its main path is the entry point itself: one nearest camera query
+    # with the counts at 0 just before, timed as a whole; then the
+    # launches' summed time (CUDA events around each launch) on another
     zero_counts()
-    stats = {}
-    _, total_ms = timed(lambda: TDD.intersect_dda(grid0, woop, *cam_q,
-                                                  stats=stats))
+    k_cam, total_ms = timed(lambda: dda(*cam_q))
     launches['cell_pass'] = TDD.cell_pass.launches
-    ms['cell_pass'] = stats['kernel_ms']
-    plain_ms['cell_pass'] = cam_plain_ms
-    log(f'  nearest, camera: {total_ms:.3f} ms for {stats["rounds"]} rounds '
-        f'({total_ms / stats["rounds"]:.3f} ms per round with the host\'s '
-        f'stepping), of which the {launches["cell_pass"]} kernel launches '
-        f'{stats["kernel_ms"]:.3f} ms '
-        f'({stats["kernel_ms"] / stats["rounds"]:.3f} ms per round); plain '
-        f'{cam_plain_ms:.3f} ms')
     if launches['cell_pass'] == 0:
         raise RuntimeError('cell_pass was not launched by intersect_dda')
-    with counted(TST, count_lib) as c:
-        TDD.intersect_dda(grid0, woop, *cam_q)
-    bounds['cell_pass'] = ray_query_bound(
-        c, N, 4, (grid0.cell_tab, grid0.cell_cl, grid0.cl_aabb,
-                  grid0.cl_count, woop))
-    log(f'  cell_pass: bound {bounds["cell_pass"][0]:.4f} ms by '
-        f'{bounds["cell_pass"][1]} {bounds["cell_pass"][2]}')
+    stats = {}
+    dda(*cam_q, stats=stats)
+    # the launches' device time: the same rounds through the wrapper, each
+    # queued behind a ~0.1 ms spin on the card, so that the card's wait for
+    # the host to submit a launch (which intersect_dda's own events count
+    # between short launches) is not counted as the kernel's
+    rays8 = TST.ray_arrays('chip_smoke', *cam_q)
+    state8 = TDD.empty_state(rays8[0].shape[0], dev)
+    counts8 = torch.zeros(stats['rounds'], dtype=torch.int32, device=dev)
+    pairs = []
+    for r in range(stats['rounds']):
+        torch.cuda._sleep(200_000)
+        pairs.append((torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)))
+        pairs[-1][0].record()
+        TDD.cell_pass(grid0, wide, rays8, state8, counts8[r:r + 1],
+                      first=r == 0)
+        pairs[-1][1].record()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(state8[3:], k_cam)):
+        raise RuntimeError('cell_pass launched round by round answers '
+                           'otherwise than intersect_dda')
+    ms['cell_pass'] = sum(a.elapsed_time(b) for a, b in pairs)
+    plain_ms['cell_pass'] = cam_plain_ms
+    log(f'  nearest, camera: {total_ms:.3f} ms for the whole query, '
+        f'{launches["cell_pass"]} launches (the count of live lanes read '
+        f'after every {TDD.READ_EVERY}th); the launches '
+        f'{ms["cell_pass"]:.3f} ms in all on the card '
+        f'({ms["cell_pass"] / stats["rounds"]:.4f} ms a launch; '
+        f'{stats["kernel_ms"]:.3f} ms as intersect_dda\'s events count '
+        f'them, with the card\'s waits for the host); dense plain '
+        f'{cam_plain_ms:.3f} ms')
+    k6_tabs = (grid0.cell_tab, grid0.cell_cl, grid0.cl_aabb, wide.nodes,
+               wide.rows, wide.index, wide.cl_root)
+    bounds['cell_pass'] = query_counts('cell_pass', 'nearest, camera',
+                                       lambda: dda(*cam_q), k6_tabs,
+                                       WOOP_OPS)
+    query_counts('cell_pass', 'nearest, sorted first bounce',
+                 lambda: dda(*bounce_q), k6_tabs, WOOP_OPS)
+    # the lane state the rounds read and write: a live lane reads its ray
+    # (32 B) and reads and writes its state (cell 12, t_cur 4, done 4, best
+    # 20 B) once a lane-round, which the counted cells are; every launch
+    # reads the done flag (4 B) of each lane already retired
+    lane_round = 32 + 2 * 40
+    cells = bounds['cell_pass'][2]['cells']
+    flags = (launches['cell_pass'] * cam_q[0].shape[0] - cells) * 4
+    state_bytes = cells * lane_round + flags
+    log(f'  lane state over the rounds: {cells} lane-rounds x {lane_round} B '
+        f'+ {flags} B of done flags read by {launches["cell_pass"]} launches '
+        f'= {state_bytes} B, '
+        f'{state_bytes / PEAK_BYTES_S * 1e3:.4f} ms at '
+        f'{PEAK_BYTES_S / 1e12:.2f} TB/s (beside the bound\'s '
+        f'{bounds["cell_pass"][2]["bytes"]} B: rays and answers once, each '
+        f'table once)')
 
     csrc = 'hydracore3_torch/csrc/'
     src = {'intersect_stream': csrc + 'traverse_wide.cuh',

@@ -1,21 +1,34 @@
 """HydraCore3 in PyTorch: the MIS path tracer on NVIDIA Hopper.
 
 This package is the PyTorch/CUDA counterpart of ``hydracore3_tpu`` and
-mirrors its module names.  It covers the RGB MIS path tracer on two scene
-classes.  Small scenes (fewer than 4096 triangles, the Cornell-class box of
-``scene/synth.box_scene``) render through the megakernel
-(``models/megakernel.py``): one hand-written CUDA kernel runs a whole
-sample per lane, or keeps lanes persistent in regen mode
-(``csrc/megakernel.cu``).  Streamed scenes (the textured synthetic city,
-``scene/synth.city_scene``) render through the batched integrator, whose
-ray queries go through two hand-written CUDA kernels (``csrc/traverse.cu``):
-a skip-pointer cluster-BVH walk (``accel/traverse_stream.py``) and a
-uniform grid march (``accel/traverse_dda.py``).  Materials: GLTF (lambert,
-lambert|metal) with slot-0 textures and the emissive light-source
-material; lights: rect, point and sphere (small scenes), rect and a
-lat-long env map (streamed scenes); a pinhole camera.  Everything else
-raises ``NotImplementedError``.
+mirrors its module names.  It covers the RGB MIS path tracer, whose scene
+build (``scene/build.py``, JAX's ``'auto'`` rules) sends a scene down one of
+four routes, each through hand-written CUDA kernels for ``sm_90a``:
 
-Entry points: ``scene.synth.city_scene`` / ``box_scene`` build a scene on
-a device and ``render.render`` renders it.
+* small scenes (fewer than 4096 triangles, the Cornell-class box of
+  ``scene/synth.box_scene``): the megakernel (``models/megakernel.py``,
+  ``csrc/megakernel.cu``) runs a whole sample per lane, or keeps lanes
+  persistent in regen mode;
+* mid-size scenes (4,096-175,000 triangles): the batched integrator
+  (``models/integrator_pt.py``) over the cluster-BVH query
+  (``accel/traverse_pallas.py``);
+* instanced scenes whose flattened soup would pass 200,000 triangles and
+  twice the unique ones (``scene/synth.instanced_city_scene``): the batched
+  integrator over the two-level query (``accel/traverse_tlas.py``);
+* large streamed scenes (the textured synthetic city,
+  ``scene/synth.city_scene``): the batched integrator over the grid march
+  (nearest hits, ``accel/traverse_dda.py``) and the stream-BVH walk (shadow
+  any-hits, ``accel/traverse_stream.py``).
+
+The ray-query kernels live in ``csrc/traverse.cu`` and
+``csrc/traverse_wide.cuh`` and walk the 4-wide tables of
+``accel/wide_bvh.py``.  Materials: GLTF (lambert, lambert|metal) with
+slot-0 textures and the emissive light-source material; lights: rect,
+point and sphere lights on every route, and a lat-long env map on the
+batched integrator's routes; a pinhole camera.  Everything else raises
+``NotImplementedError``.
+
+Entry points: ``scene.synth.city_scene`` / ``instanced_city_scene`` /
+``box_scene`` (or ``scene.build.build_scene``) build a scene on a device
+and ``render.render`` renders it.
 """

@@ -49,17 +49,19 @@ def _nvcc() -> str:
     return cuda_nvcc if os.path.exists(cuda_nvcc) else 'nvcc'
 
 
-def load_library(defines=()):
-    """Compile (unless already built) and load ``csrc/traverse.cu`` with
+def load_library(defines=(), source=_CU_SRC):
+    """Compile (unless already built) and load ``source`` (by default
+    ``csrc/traverse.cu``, which includes ``csrc/traverse_wide.cuh``) with
     the given ``-D`` macros; returns (library, seconds spent compiling).
     No macro gives the library every wrapper launches.  ``HC3_COUNT`` gives
     the measuring variant: the same entry points, with every kernel summing
     its box tests, triangle tests, instance entries and grid cells into
     four counters that ``hc3_counts_reset()`` zeroes and
     ``hc3_counts_read(ptr to 4 u64)`` copies out."""
-    flags = _NVCC_FLAGS + [f'-D{d}' for d in defines]
+    flags = (_NVCC_FLAGS + ['-I', os.path.dirname(_CU_SRC)]
+             + [f'-D{d}' for d in defines])
     name = '-'.join(['traverse', *defines]).lower()
-    path, secs = build_shared_library(name, [_CU_SRC], [_nvcc()] + flags,
+    path, secs = build_shared_library(name, [source], [_nvcc()] + flags,
                                       _CU_HEADERS)
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,7 +76,8 @@ def load_library(defines=()):
     lib.hc3_intersect_clusters.restype = i
     lib.hc3_intersect_clusters.argtypes = [p] * 7 + [f, i, i, i] + [p] * 5
     lib.hc3_cell_pass.restype = i
-    lib.hc3_cell_pass.argtypes = [p] * 7 + [i, i] + [p] * 6
+    lib.hc3_cell_pass.argtypes = ([p] * 7 + [i, f] + [p] * 4 + [f, i]
+                                  + [f] * 6 + [i] * 5 + [p] * 9)
     lib.hc3_traverse_attrs.restype = i
     lib.hc3_traverse_attrs.argtypes = [i, p]
     if 'HC3_COUNT' in defines:
@@ -138,13 +141,6 @@ def check_cuda_inputs(name, tensors: dict, device):
                              f'{tensor.dtype}')
 
 
-def pack_rays(ray_pos, ray_dir, t_min, t_max):
-    """[N, 8] f32 rows (pos3, dir3, tmin, tmax) as the cell pass reads
-    them."""
-    return torch.cat([ray_pos, ray_dir, t_min[:, None], t_max[:, None]],
-                     dim=1).to(torch.float32).contiguous()
-
-
 def ray_arrays(name, ray_pos, ray_dir, t_min, t_max):
     """The rays as the wide-BVH kernels read them, straight from the
     caller's tensors: contiguous f32 (pos [N, 3], dir [N, 3], t_min [N],
@@ -164,6 +160,26 @@ def ray_arrays(name, ray_pos, ray_dir, t_min, t_max):
 def launch_checked(name, rc: int):
     if rc != 0:
         raise RuntimeError(f'{name}: CUDA launch failed with error {rc}')
+
+
+def woop_tuv(rows, ray_pos, ray_dir):
+    """t, u, v [R, T] of R rays (pos, dir [R, 3]) against T Woop rows
+    [T, 12], op for op the kernels' ``woop_tuv``: po = M o + w, pd = M d
+    (each product and sum rounded alone, in this order), t = -po_z / pd_z,
+    u = po_x + t pd_x, v = po_y + t pd_y.  An all-zero row gives t = NaN."""
+    w = rows.T.reshape(3, 4, -1)                   # [comp, coef, T]
+    o = ray_pos[:, :, None]                        # [R, 3, 1]
+    d = ray_dir[:, :, None]
+
+    def comp(c):
+        wc = w[c]
+        po = wc[0] * o[:, 0] + wc[1] * o[:, 1] + wc[2] * o[:, 2] + wc[3]
+        pd = wc[0] * d[:, 0] + wc[1] * d[:, 1] + wc[2] * d[:, 2]
+        return po, pd
+
+    (po_x, pd_x), (po_y, pd_y), (po_z, pd_z) = comp(0), comp(1), comp(2)
+    t = -po_z / pd_z
+    return t, po_x + t * pd_x, po_y + t * pd_y
 
 
 def intersect_plain(woop, ray_pos, ray_dir, t_min, t_max, any_hit=False):
@@ -186,8 +202,8 @@ def intersect_plain(woop, ray_pos, ray_dir, t_min, t_max, any_hit=False):
         return best_t, best_i, best_u, best_v
     # [rays, triangles] temporaries of at most 2^26 (card) / 2^22 elements
     chunk_elems = (1 << 26) if dev.type == 'cuda' else (1 << 22)
-    o = ray_pos[rows][:, :, None]                 # [R, 3, 1]
-    d = ray_dir[rows][:, :, None]
+    o = ray_pos[rows]
+    d = ray_dir[rows]
     tmin = t_min[rows][:, None]
     bt = best_t[rows]
     bi = best_i[rows]
@@ -195,18 +211,7 @@ def intersect_plain(woop, ray_pos, ray_dir, t_min, t_max, any_hit=False):
     bv = best_v[rows]
     step = max(1, chunk_elems // R)
     for s in range(0, T, step):
-        w = woop[s:s + step].T.reshape(3, 4, -1)   # [comp, coef, Tc]
-
-        def comp(c):
-            wc = w[c]
-            po = wc[0] * o[:, 0] + wc[1] * o[:, 1] + wc[2] * o[:, 2] + wc[3]
-            pd = wc[0] * d[:, 0] + wc[1] * d[:, 1] + wc[2] * d[:, 2]
-            return po, pd
-
-        (po_x, pd_x), (po_y, pd_y), (po_z, pd_z) = comp(0), comp(1), comp(2)
-        t = -po_z / pd_z
-        u = po_x + t * pd_x
-        v = po_y + t * pd_y
+        t, u, v = woop_tuv(woop[s:s + step], o, d)
         valid = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tmin)
                  & (t < bt[:, None]))
         if any_hit:

@@ -27,29 +27,36 @@
 // macros):
 //
 //  * cell_pass_kernel<ANY_HIT> (K6) replaces hydracore3_tpu/accel/
-//    traverse_dda.py:_cell_kernel (one round of intersect_dda): each lane
-//    brings the id of the grid cell it stands in (BIG_I = idle) and its
-//    running best; the kernel tests that cell's clusters (box against the
-//    best t, then their 64-row Woop tiles of the contract table one by one,
-//    rays packed as [n, 8] rows), updates the best in place and flags the
-//    lane processed.  A lane's cell is always taken whole, so the TPU
-//    kernel's per-tile cell cap and cluster queue are gone.  It has not been
-//    redesigned yet: its clusters could be walked as K3 walks them.
+//    traverse_dda.py:_cell_kernel (one round of intersect_dda).  Each lane
+//    keeps its state on the card between rounds (accel/traverse_dda.py
+//    DdaState: its cell, the t where it entered it, a done flag and its
+//    best hit); one launch visits each live lane's cell, retires the lane
+//    once its best hit lies before the cell's exit (any-hit: once occluded),
+//    else takes one integer step across the nearest exit plane, and adds
+//    the lanes still live to a count the host reads, so the host does
+//    nothing between rounds but launch and read that count.  Every launch
+//    runs over all lanes; a lane already done returns at once.  The first
+//    launch computes each lane's entry into the grid.  At a cluster of
+//    the cell it runs K3's visit (visit_cluster: the widened cluster box,
+//    then the cluster's subtree of pack_wide_stream's table), so a lane
+//    makes a few Woop tests where the TPU kernel tested 64 rows a cluster.
+//    The entry and the stepping are written with __fmul_rn/__fadd_rn in the
+//    order of the plain torch round (traverse_dda.cell_pass_plain), so the
+//    kernel's cell, t and done equal the plain round's on every lane.
 //
 // Semantics follow the JAX kernels: slab test with inv = 1/d where
 // |d| > 1e-20 else 1e30, tn = max(mins, tmin), tf = min(maxs, best_t), hit
 // if tn <= tf; Woop test t = -po_z/pd_z, u = po_x + t pd_x,
 // v = po_y + t pd_y, accepted when u >= 0, v >= 0, u + v <= 1,
 // tmin < t < best_t (all-zero padding rows give NaN and are rejected); among
-// equal t the lowest padded index wins (K2, K3: by comparison; K6: the
-// first cluster visited, the lowest index within a cluster).
+// equal t the lowest padded index wins, by comparison (K6: across rounds
+// too, since the lane's best rides in its state).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TBK = 64;          // triangles per cluster
 constexpr int BLOCK = 128;       // threads per block
 
 struct Ray {
@@ -58,18 +65,6 @@ struct Ray {
 
 __device__ __forceinline__ float safe_inv(float d) {
   return fabsf(d) > 1e-20f ? 1.0f / d : 1e30f;
-}
-
-__device__ __forceinline__ Ray load_ray(const float4* __restrict__ rays,
-                                        int i) {
-  float4 a = rays[2 * i];
-  float4 b = rays[2 * i + 1];
-  Ray r;
-  r.ox = a.x; r.oy = a.y; r.oz = a.z;
-  r.dx = a.w; r.dy = b.x; r.dz = b.y;
-  r.tmin = b.z; r.tmax = b.w;
-  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-  return r;
 }
 
 // box = (min.xyz, max.x), (max.yz, pad, pad)
@@ -145,94 +140,170 @@ __device__ __forceinline__ void woop_tuv(const Ray& r,
                 __fmul_rn(t, dot3_rn(wy, r.dx, r.dy, r.dz)));
 }
 
-// Woop test of triangles [base, base + count) (rows of 3 float4), for K6.
-// Returns true on the first valid triangle under ANY_HIT.
-template <bool ANY_HIT>
-__device__ __forceinline__ bool cluster(const Ray& r,
-                                        const float4* __restrict__ woop,
-                                        int base, int count,
-                                        Best& best HC3_COUNTS_PARAM) {
-  for (int k = 0; k < count; ++k) {
-    HC3_TICK(tri);
-    float t, u, v;
-    woop_tuv(r, woop + 3 * (base + k), t, u, v);
-    bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                 (t > r.tmin) && (t < best.t);
-    if (valid) {
-      if (ANY_HIT) {
-        best.t = r.tmin;
-        best.tri = 0;
-        return true;
-      }
-      best.t = t;
-      best.u = u;
-      best.v = v;
-      best.tri = base + k;
-    }
-  }
-  return false;
-}
-
 // ---- the queries over wide BVHs: K2, K3, K4, K5 ---------------------------
 
 #include "traverse_wide.cuh"
 
-// ---- one round of the cell-rebinned wavefront ---------------------------------
+// ---- K6: one round of the cell wavefront ---------------------------------
 
-constexpr int BIG_I = 0x7FFFFFF0;    // idle lane
+// What a lane carries from round to round (traverse_dda.DdaState).
+struct LaneState {
+  int* __restrict__ cell;          // [n, 3] the grid cell it stands in
+  float* __restrict__ t_cur;       // [n] where it entered that cell
+  int* __restrict__ done;          // [n] 1 once retired
+  float* __restrict__ best_t;
+  long long* __restrict__ best_i;
+  float* __restrict__ best_u;
+  float* __restrict__ best_v;
+};
 
+// The grid's frame: origin, cell size, cells per axis.
+struct GridFrame {
+  float lo[3], h[3];
+  int d[3];
+};
+
+// The cell on axis k holding o + d t, clamped into the grid, as the plain
+// entry computes it: floor(((o + d t) - lo) / h), each step rounded alone.
+__device__ __forceinline__ int locate_rn(const GridFrame& g, int k, float o,
+                                         float d, float t) {
+  float p = __fadd_rn(o, __fmul_rn(d, t));
+  float c = floorf(__fdiv_rn(__fsub_rn(p, g.lo[k]), g.h[k]));
+  return static_cast<int>(fminf(fmaxf(c, 0.0f), (float)(g.d[k] - 1)));
+}
+
+// t at which the ray crosses the plane lo + c h of axis k, 1e30 where it
+// runs parallel to it: (lo + c h - o) * inv, each step rounded alone.
+__device__ __forceinline__ float plane_rn(const GridFrame& g, int k, int c,
+                                          float o, float d, float inv) {
+  return fabsf(d) > 1e-20f
+             ? __fmul_rn(__fsub_rn(__fadd_rn(g.lo[k],
+                                             __fmul_rn((float)c, g.h[k])),
+                                   o),
+                         inv)
+             : 1e30f;
+}
+
+// One round of lane i: on the first, its entry into the grid; then its
+// cell's clusters, the retire rule and one integer step.  Returns whether
+// the lane is still live.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool cell_round(
+    const int4* __restrict__ cell_tab, const int4* __restrict__ cell_cl,
+    const ClusterWalk& cw, const GridFrame& g, const Ray& r, bool first,
+    const LaneState& s, int i HC3_COUNTS_PARAM) {
+  int cx, cy, cz;
+  float t_cur;
+  Best best;
+  if (first) {
+    // the grid box's slab and the cell of the entry point
+    float tn = -INFINITY, tf = INFINITY;
+    const float o[3] = {r.ox, r.oy, r.oz}, inv[3] = {r.ix, r.iy, r.iz};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float hi = __fadd_rn(g.lo[k], __fmul_rn(g.h[k], (float)g.d[k]));
+      float t0 = __fmul_rn(__fsub_rn(g.lo[k], o[k]), inv[k]);
+      float t1 = __fmul_rn(__fsub_rn(hi, o[k]), inv[k]);
+      tn = fmaxf(tn, fminf(t0, t1));
+      tf = fminf(tf, fmaxf(t0, t1));
+    }
+    t_cur = fmaxf(tn, r.tmin);
+    bool out = tn > tf || tf < r.tmin || r.tmax <= r.tmin;
+    float te = out ? 0.0f : t_cur;
+    cx = locate_rn(g, 0, r.ox, r.dx, te);
+    cy = locate_rn(g, 1, r.oy, r.dy, te);
+    cz = locate_rn(g, 2, r.oz, r.dz, te);
+    best = Best{r.tmax, 0.0f, 0.0f, -1};
+    if (out) {
+      s.cell[3 * i] = cx; s.cell[3 * i + 1] = cy; s.cell[3 * i + 2] = cz;
+      s.t_cur[i] = t_cur;
+      s.done[i] = 1;
+      s.best_t[i] = best.t; s.best_i[i] = -1;
+      s.best_u[i] = 0.0f; s.best_v[i] = 0.0f;
+      return false;
+    }
+  } else {
+    cx = s.cell[3 * i]; cy = s.cell[3 * i + 1]; cz = s.cell[3 * i + 2];
+    t_cur = s.t_cur[i];
+    best = Best{s.best_t[i], s.best_u[i], s.best_v[i],
+                static_cast<int>(s.best_i[i])};
+  }
+  HC3_TICK(cell);
+  int4 ct = cell_tab[(cx * g.d[1] + cy) * g.d[2] + cz];
+  Entry stack[MARCH_STACK];
+  for (int k = 0; k < ct.y; ++k)
+    if (visit_cluster<ANY_HIT>(cw, r, cell_cl[ct.x + k].x, best,
+                               stack HC3_COUNTS_ARG))
+      break;
+  // the exit plane of each axis; retire, or step across the nearest (x
+  // before y before z among equal planes)
+  const float tx = plane_rn(g, 0, cx + (r.dx > 0.0f), r.ox, r.dx, r.ix);
+  const float ty = plane_rn(g, 1, cy + (r.dy > 0.0f), r.oy, r.dy, r.iy);
+  const float tz = plane_rn(g, 2, cz + (r.dz > 0.0f), r.oz, r.dz, r.iz);
+  const float t_exit = fminf(fminf(tx, ty), tz);
+  bool done = ANY_HIT ? best.tri >= 0 : best.t <= t_exit;
+  if (!done) {
+    bool out;
+    if (tx <= ty && tx <= tz) {
+      cx += r.dx > 0.0f ? 1 : -1;
+      out = cx < 0 || cx >= g.d[0];
+    } else if (ty <= tz) {
+      cy += r.dy > 0.0f ? 1 : -1;
+      out = cy < 0 || cy >= g.d[1];
+    } else {
+      cz += r.dz > 0.0f ? 1 : -1;
+      out = cz < 0 || cz >= g.d[2];
+    }
+    t_cur = fmaxf(t_exit, t_cur);
+    done = out || t_cur >= r.tmax;
+  }
+  s.cell[3 * i] = cx; s.cell[3 * i + 1] = cy; s.cell[3 * i + 2] = cz;
+  s.t_cur[i] = t_cur;
+  s.done[i] = done ? 1 : 0;
+  s.best_t[i] = best.t;
+  s.best_i[i] = best.tri;
+  s.best_u[i] = best.u;
+  s.best_v[i] = best.v;
+  return !done;
+}
+
+// One round over all n lanes (those done return at once).  The lanes still
+// live after it are added to *n_live, one atomic per warp.
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(BLOCK)
 cell_pass_kernel(const int4* __restrict__ cell_tab,
-                 const int4* __restrict__ cell_cl,
-                 const float4* __restrict__ cl_aabb,
-                 const int* __restrict__ cl_count,
-                 const float4* __restrict__ woop,
-                 const float4* __restrict__ rays,
-                 const int* __restrict__ cell, int n,
-                 float* __restrict__ best_t, int* __restrict__ best_i,
-                 float* __restrict__ best_u, float* __restrict__ best_v,
-                 int* __restrict__ processed) {
+                 const int4* __restrict__ cell_cl, ClusterWalk cw,
+                 GridFrame g, const float* __restrict__ pos,
+                 const float* __restrict__ dir,
+                 const float* __restrict__ tmin,
+                 const float* __restrict__ tmax, float tmax_cap, int n,
+                 int first, LaneState s, int* __restrict__ n_live) {
   int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  int c = cell[i];
-  if (c >= BIG_I) {
-    processed[i] = 0;
-    return;
+  bool live = false;
+  if (i < n && (first || !s.done[i])) {
+    HC3_COUNTS;
+    Ray r = load_ray_soa(pos, dir, tmin, tmax, tmax_cap, i);
+    live = cell_round<ANY_HIT>(cell_tab, cell_cl, cw, g, r, first != 0, s,
+                               i HC3_COUNTS_ARG);
+    HC3_FLUSH;
   }
-  Ray r = load_ray(rays, i);
-  Best best{best_t[i], best_u[i], best_v[i], best_i[i]};
-  HC3_COUNTS;
-  int4 ct = cell_tab[c];
-  HC3_TICK(cell);
-  for (int j = 0; j < ct.y; ++j) {
-    int slot = cell_cl[ct.x + j].x;
-    HC3_TICK(slab);
-    if (slab(r, cl_aabb[2 * slot], cl_aabb[2 * slot + 1], best.t) &&
-        cluster<ANY_HIT>(r, woop, slot * TBK, cl_count[slot],
-                         best HC3_COUNTS_ARG))
-      break;
-  }
-  best_t[i] = best.t;
-  best_i[i] = best.tri;
-  best_u[i] = best.u;
-  best_v[i] = best.v;
-  processed[i] = 1;
-  HC3_FLUSH;
+  unsigned m = __ballot_sync(0xffffffffu, live);
+  if (m != 0u && (threadIdx.x & 31) == __ffs(m) - 1)
+    atomicAdd(n_live, __popc(m));
 }
 
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
 
-// Launch KERNEL<ANY_HIT> with the flag chosen at run time.
-#define HC3_LAUNCH(KERNEL, any_hit, ...)                                      \
+// Launch KERNEL<ANY_HIT> on `threads` threads, the flag chosen at run time.
+#define HC3_LAUNCH(KERNEL, any_hit, threads, ...)                             \
   do {                                                                        \
-    if (n > 0) {                                                              \
+    if ((threads) > 0) {                                                      \
       if (any_hit)                                                            \
-        KERNEL<true><<<blocks(n), BLOCK, 0, s>>>(__VA_ARGS__);                \
+        KERNEL<true><<<blocks(threads), BLOCK, 0, s>>>(__VA_ARGS__);          \
       else                                                                    \
-        KERNEL<false><<<blocks(n), BLOCK, 0, s>>>(__VA_ARGS__);               \
+        KERNEL<false><<<blocks(threads), BLOCK, 0, s>>>(__VA_ARGS__);         \
     }                                                                         \
   } while (0)
 
@@ -285,7 +356,7 @@ extern "C" int hc3_intersect_stream(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stack < 0 || stack > WIDE_STACK)
     return static_cast<int>(cudaErrorInvalidValue);
-  HC3_LAUNCH(intersect_stream_kernel, any_hit,
+  HC3_LAUNCH(intersect_stream_kernel, any_hit, n,
              static_cast<const float4*>(nodes),
              static_cast<const float4*>(rows), static_cast<const int*>(index),
              static_cast<const float*>(pos), static_cast<const float*>(dir),
@@ -346,7 +417,7 @@ extern "C" int hc3_intersect_tlas(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stack < 0 || stack > WIDE_STACK)
     return static_cast<int>(cudaErrorInvalidValue);
-  HC3_LAUNCH(intersect_tlas_kernel, any_hit,
+  HC3_LAUNCH(intersect_tlas_kernel, any_hit, n,
              static_cast<const float4*>(nodes),
              static_cast<const float4*>(rows), static_cast<const int*>(index),
              static_cast<const float4*>(inst_f),
@@ -367,7 +438,7 @@ extern "C" int hc3_intersect_clusters(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stack < 0 || stack > WIDE_STACK)
     return static_cast<int>(cudaErrorInvalidValue);
-  HC3_LAUNCH(intersect_clusters_kernel, any_hit,
+  HC3_LAUNCH(intersect_clusters_kernel, any_hit, n,
              static_cast<const float4*>(nodes),
              static_cast<const float4*>(rows), static_cast<const int*>(index),
              static_cast<const float*>(pos), static_cast<const float*>(dir),
@@ -378,22 +449,41 @@ extern "C" int hc3_intersect_clusters(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hc3_cell_pass(const void* cell_tab, const void* cell_cl,
-                             const void* cl_aabb, const void* cl_count,
-                             const void* woop, const void* rays,
-                             const void* cell, int n, int any_hit,
-                             void* best_t, void* best_i, void* best_u,
-                             void* best_v, void* processed, void* stream) {
+// One round of K6.  The grid tables (cell_tab, cell_cl, cl_aabb) of a
+// GridPack without outliers and its frame (lo, h, dims); nodes / rows /
+// index / cl_root / margin: the pack_wide_stream table as
+// hc3_intersect_march takes it (cl_stack refused beyond MARCH_STACK); the
+// rays as hc3_intersect_stream takes them; the lane state (cell [n, 3] i32,
+// t_cur f32, done i32, best t f32, tri i64, u, v f32), which the first round
+// (first != 0) writes from the rays.  Every lane is advanced; those still
+// live are added to n_live (one i32 on the card).
+extern "C" int hc3_cell_pass(
+    const void* cell_tab, const void* cell_cl, const void* cl_aabb,
+    const void* nodes, const void* rows, const void* index,
+    const void* cl_root, int cl_stack, float margin, const void* pos,
+    const void* dir, const void* tmin, const void* tmax, float tmax_cap,
+    int n, float lo0, float lo1, float lo2, float h0, float h1, float h2,
+    int d0, int d1, int d2, int any_hit, int first, void* cell, void* t_cur,
+    void* done, void* best_t, void* best_i, void* best_u, void* best_v,
+    void* n_live, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HC3_LAUNCH(cell_pass_kernel, any_hit,
+  if (cl_stack < 0 || cl_stack > MARCH_STACK || n_live == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ClusterWalk cw{static_cast<const float4*>(cl_aabb),
+                       static_cast<const float4*>(nodes),
+                       static_cast<const float4*>(rows),
+                       static_cast<const int*>(index),
+                       static_cast<const int*>(cl_root), margin};
+  const GridFrame g{{lo0, lo1, lo2}, {h0, h1, h2}, {d0, d1, d2}};
+  const LaneState ls{static_cast<int*>(cell), static_cast<float*>(t_cur),
+                     static_cast<int*>(done), static_cast<float*>(best_t),
+                     static_cast<long long*>(best_i),
+                     static_cast<float*>(best_u), static_cast<float*>(best_v)};
+  HC3_LAUNCH(cell_pass_kernel, any_hit, n,
              static_cast<const int4*>(cell_tab),
-             static_cast<const int4*>(cell_cl),
-             static_cast<const float4*>(cl_aabb),
-             static_cast<const int*>(cl_count),
-             static_cast<const float4*>(woop),
-             static_cast<const float4*>(rays), static_cast<const int*>(cell),
-             n, static_cast<float*>(best_t), static_cast<int*>(best_i),
-             static_cast<float*>(best_u), static_cast<float*>(best_v),
-             static_cast<int*>(processed));
+             static_cast<const int4*>(cell_cl), cw, g,
+             static_cast<const float*>(pos), static_cast<const float*>(dir),
+             static_cast<const float*>(tmin), static_cast<const float*>(tmax),
+             tmax_cap, n, first, ls, static_cast<int*>(n_live));
   return static_cast<int>(cudaGetLastError());
 }

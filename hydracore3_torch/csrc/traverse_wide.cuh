@@ -1,8 +1,9 @@
 // Ray queries over wide BVHs with small leaves, designed for Hopper: the
 // streamed scenes' any-hit / nearest walk (K2) and grid march (K3), the
-// cluster-BVH query (K5) and the two-level (TLAS) query (K4).  Included by
-// traverse.cu, whose Ray, safe_inv, slab, Best, BLOCK and counting macros it
-// uses.
+// cluster-BVH query (K5) and the two-level (TLAS) query (K4), and the
+// cluster visit that K3 and the cell pass K6 share (visit_cluster).
+// Included by traverse.cu, whose Ray, safe_inv, slab, Best, BLOCK and
+// counting macros it uses.
 //
 //  * intersect_stream_kernel<ANY_HIT> replaces the Pallas kernel
 //    hydracore3_tpu/accel/traverse_stream.py:_kernel (wrapper
@@ -219,6 +220,41 @@ __device__ __forceinline__ bool woop_leaf(const Ray& r,
   return false;
 }
 
+// The streamed table at one cluster of the grid (K3, K6): the grid's cluster
+// boxes (accel/traverse_dda.py GridPack.cl_aabb, by slot) and each
+// cluster's subtree of pack_wide_stream's table, rooted at cl_root[slot],
+// whose boxes are widened by `margin`.
+struct ClusterWalk {
+  const float4* __restrict__ cl_aabb;
+  const float4* __restrict__ nodes;
+  const float4* __restrict__ rows;
+  const int* __restrict__ index;
+  const int* __restrict__ cl_root;
+  float margin;
+};
+
+// One cluster: its box, widened by the table's margin as its subtree's boxes
+// are, inclusively against the best t, then its subtree near-first with the
+// streamed leaf.  The stack holds MARCH_STACK entries.  Under ANY_HIT it
+// returns true at the first occluder.
+template <bool ANY_HIT>
+__device__ __forceinline__ bool visit_cluster(const ClusterWalk& cw,
+                                              const Ray& r, int slot,
+                                              Best& best, Entry* stack
+                                              HC3_COUNTS_PARAM) {
+  HC3_TICK(slab);
+  float4 a = cw.cl_aabb[2 * slot], b = cw.cl_aabb[2 * slot + 1];
+  a.x -= cw.margin; a.y -= cw.margin; a.z -= cw.margin;
+  a.w += cw.margin; b.x += cw.margin; b.y += cw.margin;
+  if (!slab(r, a, b, best.t)) return false;
+  auto leaf = [&](int ref) -> bool {
+    return woop_leaf<ANY_HIT>(r, cw.rows, cw.index, ref, best HC3_COUNTS_ARG);
+  };
+  int sp = 0;
+  return walk_wide(cw.nodes, r, cw.cl_root[slot], sp, best, leaf,
+                   stack HC3_COUNTS_ARG);
+}
+
 // ---- the streamed scenes: any-hit / nearest from the root (K2) ------------
 
 template <bool ANY_HIT>
@@ -281,21 +317,9 @@ intersect_march_kernel(const int4* __restrict__ cell_tab,
   Best best{r.tmax, 0.0f, 0.0f, -1};
   HC3_COUNTS;
   Entry march_stack[MARCH_STACK];
-  auto leaf = [&](int ref) -> bool {
-    return woop_leaf<false>(r, rows, index, ref, best HC3_COUNTS_ARG);
-  };
-  // a cluster: its box (widened by the table's margin, as its subtree's
-  // boxes are) against the best t, then its subtree near-first
+  const ClusterWalk cw{cl_aabb, nodes, rows, index, cl_root, margin};
   auto visit = [&](int slot) {
-    HC3_TICK(slab);
-    float4 a = cl_aabb[2 * slot], b = cl_aabb[2 * slot + 1];
-    a.x -= margin; a.y -= margin; a.z -= margin;
-    a.w += margin; b.x += margin; b.y += margin;
-    if (slab(r, a, b, best.t)) {
-      int sp = 0;
-      walk_wide(nodes, r, cl_root[slot], sp, best, leaf,
-                march_stack HC3_COUNTS_ARG);
-    }
+    visit_cluster<false>(cw, r, slot, best, march_stack HC3_COUNTS_ARG);
   };
   bool live = r.tmax > r.tmin;
   if (live)

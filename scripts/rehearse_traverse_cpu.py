@@ -6,21 +6,26 @@
 No card is needed.  The CUDA source (with csrc/traverse_wide.cuh) is compiled
 with g++: a stub ``cuda_runtime.h`` defines the CUDA keywords away, each
 ``<<<...>>>`` launch becomes a loop over block and thread ids, and
-``-ffp-contract=off`` keeps the arithmetic of the plain torch versions.  Two
-libraries are built into ``hydracore3_torch/_build/rehearse/``, the shipped
-variant and the counting one (``-DHC3_COUNT``), and their C entry points are
-called on CPU tensors:
+``-ffp-contract=off`` keeps the arithmetic of the plain torch versions (a
+warp's vote is the one thread's own, so K6's count of live lanes grows one
+lane at a time).  Two libraries are built into
+``hydracore3_torch/_build/rehearse/``, the shipped variant and the counting
+one (``-DHC3_COUNT``), and their C entry points are called on CPU tensors:
 
 1. the small city of tests/test_torch_scene.py, streamed: K2 (nearest and
    any-hit) and K3 against ``intersect_plain`` and ``walk_wide_plain`` on its
    camera and shadow rays and on random rays, and K3 on rays that start on
-   cell faces; the share of lanes with equal t, tri, u, v is printed (1.0
-   expected on every lane) and unresolved march lanes counted;
+   cell faces; K6 (nearest and any-hit, ``intersect_dda``'s loop over the
+   grid without outliers) against ``intersect_plain``, and its state after
+   every round against ``cell_pass_plain``'s from the same state; the share
+   of lanes with equal t, tri, u, v is printed (1.0 expected on every lane)
+   and unresolved march lanes counted;
 2. the bench city (``city_scene(width=1024, height=1024, depth=5,
    textured=True)``, 215,554 triangles) on the CPU, on ``--pixels`` pixels
    drawn from a seed: box tests, triangle tests and grid cells per ray of
-   K2's and K3's queries of the first bounce, as the counting build reports
-   them (per-ray counts do not depend on the order the rays are traced in).
+   K2's, K3's and K6's queries of the first bounce, as the counting build
+   reports them (per-ray counts do not depend on the order the rays are
+   traced in), and K6's rounds.
 
 What a card run then measures (times, registers) cannot be seen here.
 """
@@ -37,6 +42,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from hydracore3_torch.accel import traverse_dda as TDD  # noqa: E402
 from hydracore3_torch.accel import traverse_stream as TST  # noqa: E402
 from hydracore3_torch.accel import wide_bvh as WB  # noqa: E402
 from hydracore3_torch.utils.native import (BUILD_DIR,  # noqa: E402
@@ -76,6 +82,14 @@ inline unsigned long long atomicAdd(unsigned long long* p,
   unsigned long long o = *p; *p += v; return o; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+// one thread at a time: a warp's vote is this thread's own
+inline unsigned __ballot_sync(unsigned, bool p) {
+  return p ? 1u << (threadIdx.x & 31) : 0u; }
+inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
 '''
 
 
@@ -98,6 +112,7 @@ def build(defines=()):
     path, _ = build_shared_library(
         '-'.join(['rehearse', *defines]).lower(), [cpp],
         ['g++', '-O2', '-std=c++17', '-ffp-contract=off', '-shared', '-fPIC',
+         '-Wno-unknown-pragmas',
          f'-I{out}', f'-I{csrc}', *(f'-D{d}' for d in defines)],
         (os.path.join(csrc, 'traverse_wide.cuh'),))
     lib = ctypes.CDLL(path)
@@ -106,6 +121,8 @@ def build(defines=()):
     lib.hc3_intersect_march.argtypes = ([p] * 4 + [i] + [p] * 4 + [i, f_]
                                         + [p] * 4 + [f_, i] + [f_] * 6
                                         + [i] * 4 + [p] * 6)
+    lib.hc3_cell_pass.argtypes = ([p] * 7 + [i, f_] + [p] * 4 + [f_, i]
+                                  + [f_] * 6 + [i] * 5 + [p] * 9)
     return lib
 
 
@@ -147,6 +164,47 @@ def k3(lib, g, w, q):
         *map(ptr, (t, tri, u, v, un)), None)
     assert rc == 0, rc
     return (t, tri, u, v), un
+
+
+def k6_round(lib, g, w, q, state, any_hit, first, n_live):
+    """One launch of K6 (``traverse_dda.cell_pass``'s arguments)."""
+    d0, d1, d2 = g.dims
+    rc = lib.hc3_cell_pass(
+        *map(ptr, (g.cell_tab, g.cell_cl, g.cl_aabb, w.nodes, w.rows,
+                   w.index, w.cl_root)), w.cl_stack, w.margin,
+        *map(ptr, q), TST.T_MAX_CAP, q[0].shape[0], *g.lo, *g.h, d0, d1, d2,
+        int(any_hit), int(first), *map(ptr, state), ptr(n_live), None)
+    assert rc == 0, rc
+
+
+def k6(lib, g, w, q, any_hit, woop=None, max_rounds=48):
+    """``intersect_dda``'s loop on the card over the rehearsed K6.  With
+    ``woop`` each round's state is held against ``cell_pass_plain``'s from
+    the same state: returns ((t, tri, u, v), rounds, lanes left live, the
+    share of lanes whose state equals the plain round's after the worst
+    round, or None)."""
+    q = tuple(x.to(torch.float32).contiguous() for x in q)
+    n = q[0].shape[0]
+    state = TDD.empty_state(n, 'cpu')
+    counts = torch.zeros(max_rounds, dtype=torch.int32)
+    tmax_c = torch.clamp(q[3], max=TST.T_MAX_CAP)
+    plain = TDD.dda_entry(g, q[0], q[1], q[2], tmax_c) if woop is not None \
+        else None
+    worst, rounds, live = 1.0, 0, n
+    while rounds < max_rounds and live > 0:
+        k6_round(lib, g, w, q, state, any_hit, rounds == 0,
+                 counts[rounds:rounds + 1])
+        if plain is not None:
+            plain = TDD.cell_pass_plain(g, woop, q[0], q[1], q[2], tmax_c,
+                                        plain, any_hit)
+            same = torch.ones(n, dtype=torch.bool)
+            for a, b in zip(state, plain):
+                same &= (a == b).reshape(n, -1).all(1)
+            worst = min(worst, float(same.float().mean()))
+        live = int(counts[rounds])
+        rounds += 1
+    return (state[3:], rounds, live,
+            worst if plain is not None else None)
 
 
 def equal(a, b):
@@ -196,6 +254,8 @@ def main():
         n_blocks=4, subdiv=1, seed=3, width=32, height=16, depth=2,
         ground_subdiv=8, textured=True, accel='stream', device='cpu')
     w, g = host_pack(scene.st_wide), scene.st_grid
+    g0 = TDD.pack_grid(scene.st_nodes_f.numpy(), scene.st_nodes_i.numpy(),
+                       robust_aabb=False).to('cpu')
     n = meta.width * meta.height
     cam, shadow, _ = first_bounce(scene, meta, torch.arange(n), lib)
     rng = np.random.default_rng(3)
@@ -221,6 +281,14 @@ def main():
         print(f'small city, {label}: K3 equal to plain '
               f'{equal(km, TST.intersect_plain(scene.st_woop, *q))}, '
               f'{int(un.sum())} unresolved')
+        for any_hit in (False, True):
+            kd, rounds, live, same = k6(lib, g0, w, q, any_hit,
+                                        woop=scene.st_woop)
+            plain = TST.intersect_plain(scene.st_woop, *q, any_hit)
+            print(f'small city, {label}: K6 {("nearest", "any-hit")[any_hit]}'
+                  f' equal to plain {equal(kd, plain)}; {rounds} rounds, '
+                  f'{live} lanes left live; lanes whose state equals the '
+                  f'plain round\'s after the worst round: {same}')
 
     # 2. the bench city: tests per ray of the first bounce's queries
     scene, meta = synth.city_scene(width=1024, height=1024, depth=5,
@@ -237,6 +305,9 @@ def main():
     pix = torch.from_numpy(np.sort(np.random.default_rng(0).choice(
         meta.width * meta.height, n, replace=False)))
     cam, shadow, bounce = first_bounce(scene, meta, pix, lib)
+    g0 = TDD.pack_grid(scene.st_nodes_f.numpy(), scene.st_nodes_i.numpy(),
+                       robust_aabb=False).to('cpu')
+    k6_rounds = {}
     for label, run in (
             ('K2 nearest, camera', lambda: k2(count_lib, w, cam, False)),
             ('K2 any-hit, sorted shadow', lambda: k2(count_lib, w, shadow,
@@ -244,7 +315,13 @@ def main():
             ('K2 nearest, first bounce', lambda: k2(count_lib, w, bounce,
                                                     False)),
             ('K3 camera', lambda: k3(count_lib, g, w, cam)),
-            ('K3 first bounce', lambda: k3(count_lib, g, w, bounce))):
+            ('K3 first bounce', lambda: k3(count_lib, g, w, bounce)),
+            ('K6 nearest, camera', lambda: k6_rounds.update(
+                camera=k6(count_lib, g0, w, cam, False)[1:3])),
+            ('K6 nearest, first bounce', lambda: k6_rounds.update(
+                bounce=k6(count_lib, g0, w, bounce, False)[1:3])),
+            ('K6 any-hit, sorted shadow', lambda: k6_rounds.update(
+                shadow=k6(count_lib, g0, w, shadow, True)[1:3]))):
         count_lib.hc3_counts_reset()
         run()
         c = (ctypes.c_uint64 * 4)()
@@ -252,6 +329,7 @@ def main():
         print(f'bench city, {label}: per ray {c[0] / n:.3f} box tests, '
               f'{c[1] / n:.3f} triangle tests, {c[3] / n:.3f} grid cells '
               f'({n} pixels)')
+    print(f'bench city, K6 (rounds, lanes left live): {k6_rounds}')
 
 
 if __name__ == '__main__':

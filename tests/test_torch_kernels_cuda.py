@@ -10,10 +10,13 @@ Moller-Trumbore arithmetic into FMAs, so knife-edge lanes may differ), the
 two-level kernel's instance ids equal wherever the triangle is; the
 wide-BVH kernels (K2-K5) return the triangle that
 ``wide_bvh.walk_wide_plain``, their walk in plain torch, returns on >= 99.9%
-of both-hit lanes.  The Woop tests of K2, K3 and K6 round as the plain
-version's, so on rays through the shared edges of a sheet K2 and K3 equal
-the plain version and K6 its plain rounds on every lane, t, u, v and
-triangle; at a tie on a cell face K3 and K6 keep the march's stop rule.
+of both-hit lanes.  K6 is held lane for lane to its plain round
+(``traverse_dda.cell_pass_plain``): best hit, cell, entry t and done flag.
+The Woop tests of K2, K3 and K6 round as the plain version's, so on rays
+through the shared edges of a sheet, and at an equal-t tie met in two
+cells, K2, K3 and K6 equal the dense plain version on every lane, t, u, v
+and triangle; at a tie on a cell face K3 and K6 keep the march's stop
+rule.
 K1's entry points on every lane, on the box and the tessellated box: RNG,
 flags and counts equal and the f32 rows within ``megakernel.KERNEL_TOL``
 (built without FMA contraction; rsqrtf, sinf and cosf are the card's, as
@@ -32,6 +35,8 @@ from hydracore3_torch.accel import traverse_stream as TTS
 from hydracore3_torch.accel import traverse_tlas as TTT
 from hydracore3_torch.accel import wide_bvh as TWB
 from hydracore3_torch.models import megakernel as TMK
+from torch_scenes import (cross_cell_tie_scene, face_tie_scene, port_pack,
+                          tilted_sheet)
 
 pytestmark = pytest.mark.cuda
 
@@ -55,23 +60,6 @@ def random_rays(rng, n, box=6.0):
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return pos, d
-
-
-def port_pack(v0, e1, e2, bvh=None):
-    """The streamed contract tables of a soup (or of ``bvh`` over the soup
-    in its leaf order), its grid, the kernels' table
-    (``wide_bvh.pack_wide_stream``) and the soup in padded slot order
-    (padding zero)."""
-    if bvh is None:
-        bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
-        o = bvh.order
-        v0, e1, e2 = v0[o], e1[o], e2[o]
-    nf, ni, woop, op = TTS.pack_stream_bvh(bvh, v0, e1, e2)
-    sel = np.maximum(op, 0)
-    soup = tuple(np.where((op < 0)[:, None], 0.0, a[sel]).astype(np.float32)
-                 for a in (v0, e1, e2))
-    return (nf, ni, woop, op, TTD.pack_grid(nf, ni),
-            TWB.pack_wide_stream(nf, ni, woop, *soup), soup)
 
 
 @pytest.fixture
@@ -406,56 +394,131 @@ def twin_clusters():
 @pytest.mark.parametrize('any_hit', [False, True])
 def test_cell_pass_kernel_and_dda_match_plain(cuda, any_hit):
     rng = np.random.default_rng(9)
-    v0, e1, e2 = random_scene(rng, 1200)
-    bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
-    o = bvh.order
-    nf, ni, woop, _ = TTS.pack_stream_bvh(bvh, v0[o], e1[o], e2[o])
-    grid = TTD.pack_grid(nf, ni, robust_aabb=False).to(cuda)
-    woop = torch.from_numpy(woop).to(cuda)
+    nf, ni, woop, _, _, wide, _ = port_pack(*random_scene(rng, 1200))
+    grid = TTD.pack_grid(nf, ni, robust_aabb=False)
     n = 8192
     pos, d = random_rays(rng, n)
     # a third of the rays start exactly on interior cell faces in x
     m = n // 3
     pos[:m, 0] = grid.lo[0] + rng.integers(1, max(grid.dims[0], 2), m) \
         * grid.h[0]
-    pos, d = torch.from_numpy(pos).to(cuda), torch.from_numpy(d).to(cuda)
-    tmin = torch.zeros(n, device=cuda)
-    tmax = torch.full((n,), 3.0 if any_hit else 1e30, device=cuda)
-    # one round, every lane in the cell of its origin (clamped into the
-    # grid): the kernel against the round's plain version
-    lo = torch.tensor(grid.lo, device=cuda)
-    h = torch.tensor(grid.h, device=cuda)
-    dims = torch.tensor(grid.dims, device=cuda)
-    q = torch.minimum(torch.clamp(torch.floor((pos - lo) / h).long(), min=0),
-                      dims - 1)
-    cell = (q[:, 0] * grid.dims[1] + q[:, 1]) * grid.dims[2] + q[:, 2]
-    cell[::7] = TTD.BIG_I                                  # idle lanes
-    best = (tmax.clone(), torch.full((n,), -1, dtype=torch.int32, device=cuda),
-            torch.zeros(n, device=cuda), torch.zeros(n, device=cuda))
-    want, want_pr = TTD.cell_pass_plain(
-        grid, woop, pos, d, tmin, cell,
-        (best[0], best[1].long(), best[2], best[3]), any_hit)
+    q = (torch.from_numpy(pos), torch.from_numpy(d), torch.zeros(n),
+         torch.full((n,), 3.0 if any_hit else IPT_FLT_MAX))
+    q[3][::11] = 0.0                                   # dead lanes
+    tmax_c = torch.clamp(q[3], max=TTS.T_MAX_CAP)
+    w_t = torch.from_numpy(woop)
+    g_cpu, g_card, wide_card = grid.to('cpu'), grid.to(cuda), wide.to(cuda)
+    on = TTS.ray_arrays('test', *(x.to(cuda) for x in q))
+    # two rounds, one launch each (the first writes the entry), against the
+    # plain round from the same state, lane for lane: best hit, cell, entry
+    # t and done flag
+    state = TTD.empty_state(n, cuda)
+    plain = TTD.dda_entry(g_cpu, *q[:3], tmax_c)
     before = TTD.cell_pass.launches
-    pr = TTD.cell_pass(grid, woop, TTS.pack_rays(pos, d, tmin, tmax),
-                       cell.to(torch.int32), best, any_hit)
-    torch.cuda.synchronize()
-    assert TTD.cell_pass.launches == before + 1
-    assert torch.equal(pr, want_pr) and not pr[::7].any()
-    hit_eq, t_eq, both = _agree(
-        (best[0], best[1].long(), best[2], best[3]), want, any_hit)
-    assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
-    assert both > 20
-    assert (best[1][::7] == -1).all()
-    # the whole round loop against the dense plain version
+    for r in range(2):
+        count = torch.zeros(1, dtype=torch.int32, device=cuda)
+        TTD.cell_pass(g_card, wide_card, on, state, count, any_hit,
+                      first=r == 0)
+        torch.cuda.synchronize()
+        plain = TTD.cell_pass_plain(g_cpu, w_t, *q[:3], tmax_c, plain,
+                                    any_hit)
+        for name, a, b in zip(TTD.DdaState._fields, state, plain):
+            assert torch.equal(a.cpu(), b), (r, name)
+        assert int(count) == int((plain.done == 0).sum()) > 0
+        # the next round from the plain state, as the card holds it
+        state = TTD.DdaState(*(x.to(cuda) for x in plain))
+    assert TTD.cell_pass.launches == before + 2
+    assert (state.done.cpu()[::11] == 1).all()
+    # the whole loop against the dense plain version, on every lane
     stats = {}
-    k = TTD.intersect_dda(grid, woop, pos, d, tmin, tmax, any_hit,
-                          stats=stats)
+    k = TTD.intersect_dda(g_card, None, *(x.to(cuda) for x in q), any_hit,
+                          stats=stats, wide=wide_card)
     assert stats['live'] == 0 and stats['rounds'] >= 2
-    assert TTD.cell_pass.launches == before + 1 + stats['rounds']
-    p = TTS.intersect_plain(woop, pos, d, tmin, tmax, any_hit)
-    hit_eq, t_eq, both = _agree(k, p, any_hit)
-    assert hit_eq >= 0.999 and t_eq >= 0.999, (hit_eq, t_eq)
-    assert both > 100
+    assert TTD.cell_pass.launches == before + 2 + stats['rounds']
+    assert k[1].dtype == torch.int64
+    p = TTS.intersect_plain(w_t, *q[:3], tmax_c, any_hit)
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b)
+    assert (p[1] >= 0).sum() > 100
+
+
+def test_dda_on_the_card_needs_the_wide_table(cuda):
+    """``intersect_dda`` on CUDA tensors walks ``wide`` and refuses a query
+    without it, a tree whose cluster walk needs more stack than the kernel
+    holds, or a table of another cluster count; nothing falls back to the
+    plain rounds."""
+    rng = np.random.default_rng(4)
+    nf, ni, woop, _, _, wide, _ = port_pack(*random_scene(rng, 300))
+    grid = TTD.pack_grid(nf, ni, robust_aabb=False).to(cuda)
+    wide = wide.to(cuda)
+    pos, d = (torch.from_numpy(a).to(cuda) for a in random_rays(rng, 64))
+    q = (pos, d, torch.zeros(64, device=cuda),
+         torch.full((64,), 1e30, device=cuda))
+    woop = torch.from_numpy(woop).to(cuda)
+    before = TTD.cell_pass.launches
+    with pytest.raises(ValueError, match='wide'):
+        TTD.intersect_dda(grid, woop, *q)
+    with pytest.raises(ValueError, match='wide'):
+        TTD.intersect_dda(grid, woop, *q, any_hit=True,
+                          wide=dataclasses.replace(wide, cl_root=None))
+    with pytest.raises(ValueError, match='stack'):
+        TTD.intersect_dda(grid, woop, *q, wide=dataclasses.replace(
+            wide, cl_stack=TWB.MARCH_STACK + 1))
+    with pytest.raises(ValueError, match='clusters'):
+        TTD.intersect_dda(grid, woop, *q, wide=dataclasses.replace(
+            wide, cl_root=wide.cl_root[:-1]))
+    with pytest.raises(ValueError):
+        TTD.intersect_dda(grid, woop, *q, wide=dataclasses.replace(
+            wide, rows=wide.rows.cpu()))
+    assert TTD.cell_pass.launches == before
+    TTD.intersect_dda(grid, None, *q, wide=wide)
+    assert TTD.cell_pass.launches > before
+    # a cap of two rounds (below READ_EVERY): the count of lanes left live
+    # is read after the last launch and equals the plain rounds'
+    card, plain = {}, {}
+    TTD.intersect_dda(grid, None, *q, max_rounds=2, stats=card, wide=wide)
+    TTD.intersect_dda(TTD.pack_grid(nf, ni, robust_aabb=False).to('cpu'),
+                      woop.cpu(), *(x.cpu() for x in q), max_rounds=2,
+                      stats=plain)
+    assert card['rounds'] == plain['rounds'] == 2
+    assert card['live'] == plain['live'] > 0
+
+
+def test_march_kernel_unchanged_by_the_shared_cluster_visit(cuda):
+    """K3 and K6 visit a cluster through one function
+    (``visit_cluster``): on the small city's camera rays and on random rays
+    K3 returns the dense plain version's t, u, v and triangle on every lane,
+    as it did before it shared the visit, and K6 returns the same."""
+    from hydracore3_torch.models import integrator_pt as IPT
+    from hydracore3_torch.ops import rng as RNG
+    from hydracore3_torch.scene import synth
+    scene, meta = synth.city_scene(**dict(CITY_KW, device=cuda))
+    n = meta.width * meta.height
+    pix = torch.arange(n, device=cuda)
+    st = IPT.kernel_init_eye_ray(scene, meta, RNG.gen_init(pix), pix)
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(-25, 25, (4096, 3)).astype(np.float32)
+    pos[:, 1] = np.abs(pos[:, 1])
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    g0 = TTD.pack_grid(scene.st_nodes_f.cpu().numpy(),
+                       scene.st_nodes_i.cpu().numpy(),
+                       robust_aabb=False).to(cuda)
+    for pos, d in ((st.ray_pos, st.ray_dir),
+                   (torch.from_numpy(pos).to(cuda),
+                    torch.from_numpy(d).to(cuda))):
+        m = pos.shape[0]
+        q = (pos, d, torch.zeros(m, device=cuda),
+             torch.full((m,), IPT_FLT_MAX, device=cuda))
+        want = TTS.intersect_plain(scene.st_woop, *q[:3],
+                                   torch.clamp(q[3], max=TTS.T_MAX_CAP))
+        march = TTD.intersect_march(scene.st_grid, None, *q,
+                                    wide=scene.st_wide)
+        cells = TTD.intersect_dda(g0, None, *q, wide=scene.st_wide)
+        for got in (march, cells):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        assert (want[1] >= 0).float().mean() > 0.3
 
 
 @pytest.mark.parametrize('route', ['stream_tlas', 'clusters'])
@@ -708,44 +771,12 @@ def test_mega_wrappers_refuse_a_pack_without_its_wide_table(cuda):
     assert (TMK.sample_pass.launches, TMK.regen_pass.launches) == n
 
 
-def tilted_sheet(rng, n=12):
-    """An n x n grid of quads on the tilted plane z = x / 2 + y / 4, its
-    vertices jittered on a grid of 2^-6 so that every coordinate and edge
-    is exact in f32: 2 n^2 coplanar triangles whose neighbours share edges
-    exactly, in a shuffled order.  Returns the soup (v0, e1, e2), the
-    shared interior edges that no axis is orthogonal to, as (a, b) vertex
-    pairs (their inner points lie inside both triangles' boxes, not on a
-    face), and the plane's normal."""
-    g = np.arange(n + 1) * 32 - 16 * n
-    x = g[:, None] + rng.integers(-8, 9, (n + 1, n + 1))
-    y = g[None, :] + rng.integers(-8, 9, (n + 1, n + 1))
-    P = np.stack([x, y, 2 * x + y], -1) / 64.0      # z = x / 2 + y / 4
-    tris, edges = [], []
-    for i in range(n):
-        for j in range(n):
-            p00, p10, p11, p01 = (P[i, j], P[i + 1, j], P[i + 1, j + 1],
-                                  P[i, j + 1])
-            tris += [(p00, p10, p11), (p00, p11, p01)]
-            edges.append((p00, p11))                  # the quad's diagonal
-            if i + 1 < n:
-                edges.append((p10, p11))
-            if j + 1 < n:
-                edges.append((p11, p01))
-    tris = np.asarray(tris)[rng.permutation(len(tris))]
-    v0 = tris[:, 0].astype(np.float32)
-    e1 = (tris[:, 1] - tris[:, 0]).astype(np.float32)
-    e2 = (tris[:, 2] - tris[:, 0]).astype(np.float32)
-    edges = np.asarray(edges)
-    edges = edges[(edges[:, 0] != edges[:, 1]).all(1)]
-    return (v0, e1, e2), edges, np.array([0.5, 0.25, -1.0])
-
-
 def test_woop_kernels_settle_edge_ties_as_plain(cuda):
-    """Coplanar triangles sharing edges, rays through the edges: K2 nearest
-    and K3 return the dense plain version's t, u, v and triangle on every
-    lane, and K6's rounds return what its plain rounds return.  Both need
-    the kernels' Woop test to round as the plain version's does (no FMA
-    contraction): an ulp of t decides which neighbour wins."""
+    """Coplanar triangles sharing edges, rays through the edges: K2
+    nearest, K3 and K6 return the dense plain version's t, u, v and
+    triangle on every lane.  That needs the kernels' Woop test to round as
+    the plain version's does (no FMA contraction): an ulp of t decides
+    which neighbour wins."""
     rng = np.random.default_rng(21)
     soup, edges, normal = tilted_sheet(rng)
     nf, ni, woop, _, grid, wide, _ = port_pack(*soup)
@@ -767,63 +798,15 @@ def test_woop_kernels_settle_edge_ties_as_plain(cuda):
     # miss both neighbours
     assert (want[1] >= 0).float().mean() > 0.5
     on = [x.to(cuda) for x in (pos, d, tmin, tmax)]
+    flat = TTD.pack_grid(nf, ni, robust_aabb=False)
     for got in (TTS.intersect_stream(None, None, None, *on,
                                      wide=wide.to(cuda)),
                 TTD.intersect_march(grid.to(cuda), None, *on,
-                                    wide=wide.to(cuda))):
+                                    wide=wide.to(cuda)),
+                TTD.intersect_dda(flat.to(cuda), None, *on,
+                                  wide=wide.to(cuda))):
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
-    flat = TTD.pack_grid(nf, ni, robust_aabb=False)
-    w_t = torch.from_numpy(woop)
-    plain_rounds = TTD.intersect_dda(flat.to('cpu'), w_t, pos, d, tmin,
-                                     tmax)
-    rounds = TTD.intersect_dda(flat.to(cuda), w_t.to(cuda), *on)
-    for a, b in zip(rounds, plain_rounds):
-        assert torch.equal(a.cpu(), b)
-
-
-def face_tie_scene():
-    """Two clusters holding the same quad at x = 2, on the face between
-    cells 1 and 2 of a 4 x 1 x 1 grid of unit cells: cluster 0 (slots 0,
-    1, the lower) is listed in cell 2 alone, cluster 1 (slots 64, 65) in
-    cell 1 alone.  Rays along +x meet cluster 1 first, at t equal to the
-    cell's exit; rays along -x meet cluster 0 first.  Returns (nodes_f,
-    nodes_i, woop, soup in slot order, grid, rays (pos, dir) of both
-    directions, FlatBVH)."""
-    v0 = np.array([[2, 0.25, 0.25], [2, 0.75, 0.75]] * 2, np.float32)
-    e1 = np.array([[0, 0.5, 0], [0, -0.5, 0]] * 2, np.float32)
-    e2 = np.array([[0, 0, 0.5], [0, 0, -0.5]] * 2, np.float32)
-    lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
-    hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
-    bvh = TB.FlatBVH(
-        bmin=np.stack([lo.min(0), lo[:2].min(0), lo[2:].min(0)]),
-        bmax=np.stack([hi.max(0), hi[:2].max(0), hi[2:].max(0)]),
-        skip=np.array([-1, 2, -1], np.int32),
-        tri_offset=np.array([0, 0, 2], np.int32),
-        tri_count=np.array([0, 2, 2], np.int32),
-        order=np.arange(4, dtype=np.int32))
-    nf, ni, woop, op = TTS.pack_stream_bvh(bvh, v0, e1, e2)
-    sel = np.maximum(op, 0)
-    soup = tuple(np.where((op < 0)[:, None], 0.0, a[sel]).astype(np.float32)
-                 for a in (v0, e1, e2))
-    cl_aabb = np.zeros((2, 8), np.float32)
-    cl_aabb[:, 0:3] = np.minimum(lo[[0, 2]], lo[[1, 3]])
-    cl_aabb[:, 3:6] = np.maximum(hi[[0, 2]], hi[[1, 3]])
-    grid = TTD.GridPack(
-        cell_tab=np.array([[0, 0, 1, 0], [0, 1, 0, 0], [1, 1, 0, 0],
-                           [2, 0, 1, 0]], np.int32),
-        cell_cl=np.array([[1, 0, 0, 0], [0, 0, 0, 0]], np.int32),
-        cl_aabb=cl_aabb, cl_count=np.array([2, 2], np.int32),
-        outliers=np.zeros((1, 4), np.int32), n_outliers=0,
-        lo=(0.0, 0.0, 0.0), h=(1.0, 1.0, 1.0), dims=(4, 1, 1))
-    rng = np.random.default_rng(2)
-    n = 256
-    yz = rng.uniform(0.3, 0.7, (n, 2)).astype(np.float32)
-    x = np.where(np.arange(n) < n // 2, 0.5, 3.5).astype(np.float32)
-    pos = np.concatenate([x[:, None], yz], 1)
-    d = np.zeros((n, 3), np.float32)
-    d[:, 0] = np.where(np.arange(n) < n // 2, 1.0, -1.0)
-    return nf, ni, woop, soup, grid, (pos, d), bvh
 
 
 def test_march_stops_at_a_tie_on_a_cell_face_as_its_plain_rounds(cuda):
@@ -843,7 +826,25 @@ def test_march_stops_at_a_tie_on_a_cell_face_as_its_plain_rounds(cuda):
     assert (want[1][:n // 2] >= 64).all() and (want[1][n // 2:] < 2).all()
     on = [x.to(cuda) for x in q]
     march = TTD.intersect_march(grid.to(cuda), None, *on, wide=wide.to(cuda))
-    cells = TTD.intersect_dda(grid.to(cuda), w_t.to(cuda), *on)
+    cells = TTD.intersect_dda(grid.to(cuda), None, *on, wide=wide.to(cuda))
     for got in (march, cells):
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+def test_dda_settles_a_tie_met_in_two_cells_as_plain(cuda):
+    """K6 on ``cross_cell_tie_scene``: the lower slot wins an equal t
+    across rounds, so every lane returns the dense plain version's t, u, v
+    and triangle (the lane's best rides in its state)."""
+    nf, ni, woop, soup, grid, (pos, d), _ = cross_cell_tie_scene()
+    wide = TWB.pack_wide_stream(nf, ni, woop, *soup)
+    n = pos.shape[0]
+    q = (torch.from_numpy(pos), torch.from_numpy(d), torch.zeros(n),
+         torch.full((n,), IPT_FLT_MAX))
+    want = TTS.intersect_plain(torch.from_numpy(woop), *q[:3],
+                               torch.clamp(q[3], max=TTS.T_MAX_CAP))
+    assert (want[1] == 0).all()
+    got = TTD.intersect_dda(grid.to(cuda), None, *(x.to(cuda) for x in q),
+                            wide=wide.to(cuda))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

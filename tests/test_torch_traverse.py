@@ -9,7 +9,10 @@ t within rtol 2e-4 / atol 1e-5, tri equal on >= 99.9% of hits (the rest
 are equal-t ties at shared edges).  The packers must give the JAX tables.
 ``intersect_dda`` (the round loop over the cell pass, on CPU tensors the
 plain version of each round) is held against JAX's ``intersect_dda`` and
-against ``intersect_plain`` at the same bars.
+against ``intersect_plain`` at the same bars, and against ``intersect_plain``
+on every lane where equal-t ties decide the triangle: rays through the
+shared edges of a sheet, and a tie met in two cells, where the JAX round
+loop keeps the triangle it met first (a recorded tie: hit at the same t).
 """
 import dataclasses
 import types
@@ -27,6 +30,8 @@ from hydracore3_torch.accel import build_bvh as TB
 from hydracore3_torch.accel import traverse_dda as TTD
 from hydracore3_torch.accel import traverse_stream as TTS
 from hydracore3_torch.models import integrator_pt as TIPT
+from torch_scenes import cross_cell_tie_scene, face_tie_scene, tilted_sheet
+from torch_scenes import port_pack as card_pack
 
 
 def random_scene(rng, n_tris, spread=4.0):
@@ -407,6 +412,24 @@ def test_dda_refuses_a_grid_with_outliers_and_stops_at_max_rounds():
     assert stats['rounds'] == 2 and stats['live'] > 0
 
 
+@pytest.mark.parametrize('max_rounds', [0, -1])
+def test_dda_refuses_fewer_than_one_round(max_rounds):
+    """``intersect_dda`` runs at least one round: a cap below one is refused
+    on every device (on the card no round would write the lane state)."""
+    (v0, e1, e2), (pos, d), _, _ = dda_scene('small')
+    n = len(pos)
+    args = [torch.from_numpy(a) for a in (pos, d, np.zeros(n, np.float32),
+                                          np.full(n, 1e30, np.float32))]
+    bvh = TB.build(v0, e1, e2, max_leaf=TTS.TBK)
+    o = bvh.order
+    nf, ni, woop, _ = TTS.pack_stream_bvh(bvh, v0[o], e1[o], e2[o])
+    grid = TTD.pack_grid(nf, ni, robust_aabb=False).to('cpu')
+    with pytest.raises(ValueError, match='max_rounds'):
+        TTD.intersect_dda(grid, torch.from_numpy(woop), *args,
+                          max_rounds=max_rounds)
+    TTD.intersect_dda(grid, torch.from_numpy(woop), *args, max_rounds=1)
+
+
 def test_dda_keeps_hits_at_the_grid_boundary():
     """Shadow rays leaving the ground downward hit it a hair in front of
     their origin, at the grid's lower face: a round loop that re-locates the
@@ -437,7 +460,7 @@ def test_dda_keeps_hits_at_the_grid_boundary():
 
 def test_march_stop_rule_at_a_face_tie_is_the_reference_rule():
     """An equal-t tie on a cell face, the lower slot listed only in the
-    next cell (``test_torch_kernels_cuda.face_tie_scene``): the JAX march
+    next cell (``torch_scenes.face_tie_scene``): the JAX march
     stops once its best t lies at the cell's exit and keeps the higher slot
     on the rays that meet it first, and the port's march rule (the plain
     rounds of ``intersect_dda``, which K3 and K6 are held to on the card)
@@ -445,7 +468,6 @@ def test_march_stop_rule_at_a_face_tie_is_the_reference_rule():
     version, which the port's ``intersect_march`` is on the CPU, returns the
     lower slot there: a deviation from the contract's lowest-index rule
     that the port shares with the reference."""
-    from test_torch_kernels_cuda import face_tie_scene
     nf, ni, woop, soup, grid, (pos, d), bvh = face_tie_scene()
     n = pos.shape[0]
     tmin = np.zeros(n, np.float32)
@@ -476,3 +498,83 @@ def test_march_stop_rule_at_a_face_tie_is_the_reference_rule():
     dense = TTD.intersect_march(grid, torch.from_numpy(woop), *q)
     assert (dense[1] < 2).all()
     np.testing.assert_array_equal(dense[0].numpy(), jt)
+
+
+def test_dda_settles_a_tie_met_in_two_cells_as_dense_plain():
+    """``torch_scenes.cross_cell_tie_scene``: A (slot 0) and B
+    (slot 64) share an edge and are hit at the same t; a +x ray meets B in
+    an earlier cell, with the hit beyond that cell's exit, and A only in the
+    next.  The plain rounds of ``intersect_dda`` return the dense
+    ``intersect_plain`` answer, A, on every lane, t, u, v and triangle: the
+    lower slot wins an equal t across rounds.  (Before the rounds compared
+    slots at an equal t, a round kept the t found in an earlier cell and
+    this test failed on every +x lane, returning B.)  The JAX round loop
+    keeps the triangle it met first; its t is the same and its triangle is
+    hit at that t by the plain Woop test, so the JAX answer is a tie
+    settled the other way, not a wrong hit."""
+    nf, ni, woop, soup, grid, (pos, d), bvh = cross_cell_tie_scene()
+    n = pos.shape[0]
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, 1e30, np.float32)
+    q = tuple(torch.from_numpy(a) for a in (pos, d, tmin, tmax))
+    w_t = torch.from_numpy(woop)
+    want = TTS.intersect_plain(w_t, *q[:3],
+                               torch.clamp(q[3], max=TTS.T_MAX_CAP))
+    assert (want[1] == 0).all()
+    assert (want[0][:n // 2] == 2.0).all() and (want[0][n // 2:] == 1.0).all()
+    got = TTD.intersect_dda(grid.to('cpu'), w_t, *q)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    v0, e1, e2 = (a[[0, 64, 65]] for a in soup)         # the real slots
+    _, _, jtris, _ = JTS.pack_stream_bvh(bvh, v0, e1, e2)
+    jgrid = JTD.GridPack(
+        cell_tab=jnp.asarray(grid.cell_tab),
+        cell_cl=jnp.asarray(grid.cell_cl), cl_aabb=jnp.asarray(grid.cl_aabb),
+        outliers=jnp.asarray(grid.outliers), n_outliers=0, lo=grid.lo,
+        h=grid.h, dims=grid.dims)
+    # one call per direction: the JAX kernel tests the clusters of every
+    # cell its tile's lanes stand in against all of the tile's lanes
+    jt, jtri = (np.concatenate(x) for x in zip(*(
+        [np.asarray(y) for y in JTD.intersect_dda(
+            jgrid, jnp.asarray(jtris), jnp.asarray(pos[h]),
+            jnp.asarray(d[h]), jnp.asarray(tmin[h]), jnp.asarray(tmax[h]),
+            interpret=True)[:2]]
+        for h in (slice(0, n // 2), slice(n // 2, n)))))
+    np.testing.assert_array_equal(jt, want[0].numpy())
+    assert (jtri[:n // 2] == 64).all() and (jtri[n // 2:] == 0).all()
+    for tri in (0, 64):
+        lanes = np.nonzero(jtri == tri)[0]
+        own = TTS.intersect_plain(w_t[tri:tri + 1], *(x[lanes] for x in q[:3]),
+                                  torch.clamp(q[3][lanes],
+                                              max=TTS.T_MAX_CAP))
+        assert (own[1] == 0).all()
+        np.testing.assert_array_equal(own[0].numpy(), jt[lanes])
+
+
+def test_dda_settles_edge_ties_as_dense_plain():
+    """The CPU twin of ``test_woop_kernels_settle_edge_ties_as_plain``:
+    coplanar triangles sharing edges (``tilted_sheet``), rays through the
+    edges; the plain rounds of ``intersect_dda`` return the dense plain
+    version's t, u, v and triangle on every lane."""
+    rng = np.random.default_rng(21)
+    soup, edges, normal = tilted_sheet(rng)
+    nf, ni, woop, _, _, _, _ = card_pack(*soup)
+    n = 4096
+    k = rng.integers(0, len(edges), n)
+    s_ = rng.uniform(0.05, 0.95, n)[:, None]
+    p = (1.0 - s_) * edges[k, 0] + s_ * edges[k, 1]
+    side = np.where(rng.random(n) < 0.5, -1.0, 1.0)[:, None]
+    org = p + side * (2.0 * normal + rng.uniform(-0.6, 0.6, (n, 3)))
+    d = p - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    q = (torch.from_numpy(org.astype(np.float32)),
+         torch.from_numpy(d.astype(np.float32)), torch.zeros(n),
+         torch.full((n,), float(np.finfo(np.float32).max)))
+    w_t = torch.from_numpy(woop)
+    want = TTS.intersect_plain(w_t, *q[:3],
+                               torch.clamp(q[3], max=TTS.T_MAX_CAP))
+    assert (want[1] >= 0).float().mean() > 0.5
+    grid = TTD.pack_grid(nf, ni, robust_aabb=False).to('cpu')
+    got = TTD.intersect_dda(grid, w_t, *q)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
