@@ -76,7 +76,18 @@ Phases (any failure raises and the exit code is not 0):
      and cl_aabb, st_wide's nodes, rows, index and cl_root), with the lane
      state a round reads and writes printed beside it.  No renderer path
      calls ``intersect_dda``, so this query is its main path: its launches
-     are counted here.
+     are counted here;
+  9. the textured box and the bench city as Hydra XML libraries: each
+     description written by ``api.write_library`` into a temporary
+     directory, loaded by ``scene.build.load_scene``, every table held
+     against ``build_scene`` of the same description (integers exactly,
+     floats to rtol 1e-6, the wide tables too); the loaded box rendered
+     through K1 at 64 spp (fixed chain and ``regen``) and the loaded city
+     through K2/K3 at 16 spp with the seeds of phases 5 and 4: launches,
+     0 non-finite lane samples, each image's max abs difference from its
+     phase's image, PSNR >= 35 dB and mean within 2% against the goldens;
+     the library's bytes on disk and ``load_scene``'s host seconds for the
+     city beside the card's name and power limit.
 Every kernel's ``bound_ms`` is the larger of its bytes (rays and outputs
 once, each table once) over 3.35 TB/s and its operations over 67 TFLOP/s
 (f32 outside the tensor cores); the ray-query kernels' operations are
@@ -104,6 +115,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -535,6 +547,7 @@ def main():
         raise RuntimeError('render produced non-finite pixels')
     gold = np.load(os.path.join(REPO, 'tests', 'goldens',
                                 'city_bench_128.npz'))['img'].astype(np.float32)
+    city_img = img
     psnr, mean_rel = psnr_mean(img, gold)
     log(f'  PSNR vs golden {psnr:.2f} dB; mean {100 * mean_rel:.3f}% off')
     if psnr < PSNR_MIN or mean_rel > MEAN_TOL:
@@ -661,7 +674,7 @@ def main():
         if p_rf < REGEN_PSNR_MIN:
             raise RuntimeError(f'{tag}: regen vs fixed {p_rf:.2f} dB < '
                                f'{REGEN_PSNR_MIN}')
-        return out
+        return out, imgs
 
     counters = (TST.intersect_stream, TDD.intersect_march, TDD.cell_pass,
                 TT.intersect_stream_tlas, TPL.intersect_clusters,
@@ -673,11 +686,11 @@ def main():
 
     box, bmeta = synth.box_scene(1024, 768, depth=6, textured=True,
                                  device=dev)
-    k1 = megakernel_phase('5', box, bmeta, None)
+    k1, box_imgs = megakernel_phase('5', box, bmeta, None)
     del box
     tess, tmeta = synth.box_scene(1024, 768, depth=6, textured=True,
                                   wall_subdiv=20, device=dev)
-    k1_tess = megakernel_phase('5b', tess, tmeta, TESS_LANES)
+    k1_tess, _ = megakernel_phase('5b', tess, tmeta, TESS_LANES)
     del tess
     for name in ('mega_sample', 'mega_regen'):
         ms[name], plain_ms[name], bounds[name], errs[name], \
@@ -989,6 +1002,110 @@ def main():
         f'{PEAK_BYTES_S / 1e12:.2f} TB/s (beside the bound\'s '
         f'{bounds["cell_pass"][2]["bytes"]} B: rays and answers once, each '
         f'table once)')
+
+    # ---- 9. the box and the bench city loaded from Hydra XML libraries ---
+    # written by the port's writer (the JAX package's files byte for byte),
+    # loaded by load_scene, held table by table against build_scene of the
+    # same description (phases 2 and 5), and rendered with the seeds of
+    # phases 4 and 5: K1 (both entry points) and K2/K3
+    def same_tables(label, a, b):
+        ta, tb = a.to_numpy(), b.to_numpy()
+        for name, x, y in (('st_wide', a.st_wide, b.st_wide),
+                           ('cl_wide', a.cl_wide, b.cl_wide)):
+            if (x is None) != (y is None):
+                raise RuntimeError(f'{label}: {name} on one side only')
+            # (node records hold int32 references: compare bits)
+            for w_, t_ in ((x, ta), (y, tb)):
+                for k, v in ({} if w_ is None else w_.tensors()).items():
+                    t_[f'{name}_{k}'] = v.cpu().numpy().view(np.int32)
+        if sorted(ta) != sorted(tb):
+            raise RuntimeError(f'{label}: other tables {sorted(ta)} / '
+                               f'{sorted(tb)}')
+        for k in ta:
+            x, y = ta[k], tb[k]
+            ok = x.shape == y.shape and (
+                np.array_equal(x, y) if x.dtype.kind in 'iub'
+                else np.allclose(x, y, rtol=1e-6, atol=0))
+            if not ok:
+                raise RuntimeError(f'{label}: table {k} differs')
+        log(f'  {label}: all {len(ta)} tables equal to build_scene\'s '
+            '(integers exactly, floats to rtol 1e-6; the texture slots '
+            'numbered alike, both builds going through one loader)')
+
+    def lib_bytes(d):
+        return sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs)
+
+    from hydracore3_torch import api
+    with tempfile.TemporaryDirectory() as tmp:
+        box_dir, city_dir = (os.path.join(tmp, k) for k in ('box', 'city'))
+        box_desc = synth.build_box(1024, 768, depth=6, textured=True)
+        t0 = time.perf_counter()
+        box_xml = api.write_library(box_desc, box_dir)
+        box_w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lbox, lbmeta = B.load_scene(box_xml, device=dev)
+        torch.cuda.synchronize()
+        box_l_s = time.perf_counter() - t0
+        log(f'[9] the textured box as a library: {lib_bytes(box_dir)} B on '
+            f'disk, written in {box_w_s:.3f} s, load_scene {box_l_s:.3f} s')
+        same_tables('loaded box', lbox,
+                    B.build_scene(box_desc, device=dev)[0])
+        if not MK.supported(lbox, lbmeta) or lbmeta.use_stream:
+            raise RuntimeError('the loaded box is not routed to K1')
+        for name, regen in (('mega_sample', False), ('mega_regen', True)):
+            zero_counts()
+            im, tm = R.render(lbox, lbmeta, spp=BOX_SPP, regen=regen,
+                              return_timing=True)
+            n_l = (MK.regen_pass if regen else MK.sample_pass).launches
+            p, m_ = psnr_mean(im, gold_box)
+            diff = float(np.abs(im[..., :3] - box_imgs[name]).max())
+            log(f'  loaded box, render {"regen" if regen else "fixed"} '
+                f'{BOX_SPP} spp: {tm["total_s"]:.3f} s, launches {n_l}, '
+                f'non-finite lane samples {tm["nonfinite"]}; max abs '
+                f'difference from phase 5\'s image {diff:.3e}; vs golden '
+                f'PSNR {p:.2f} dB, mean {100 * m_:.3f}% off')
+            if n_l == 0 or tm['nonfinite'] or not np.isfinite(im).all():
+                raise RuntimeError(f'loaded box {name}: {n_l} launches, '
+                                   f'{tm["nonfinite"]} non-finite samples')
+            if p < PSNR_MIN or m_ > MEAN_TOL:
+                raise RuntimeError(f'loaded box {name} off the golden: '
+                                   f'PSNR {p:.2f} dB, mean '
+                                   f'{100 * m_:.3f}% off')
+        del lbox
+
+        city_desc = synth.build_city(width=1024, height=1024, depth=5,
+                                     textured=True)
+        t0 = time.perf_counter()
+        city_xml = api.write_library(city_desc, city_dir)
+        city_w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lcity, lcmeta = B.load_scene(city_xml, device=dev)
+        torch.cuda.synchronize()
+        city_l_s = time.perf_counter() - t0
+        city_b = lib_bytes(city_dir)
+        log(f'  the bench city as a library: {city_b} B on disk, written '
+            f'in {city_w_s:.3f} s; load_scene {city_l_s:.3f} s on the host '
+            f'({card})')
+        same_tables('loaded bench city', lcity, scene)
+        zero_counts()
+        im, tm = R.render(lcity, lcmeta, spp=spp, integrator='mispt',
+                          tile_size=1 << 20, return_timing=True)
+        n9 = {w_.__name__: w_.launches for w_ in (TST.intersect_stream,
+                                                   TDD.intersect_march)}
+        p, m_ = psnr_mean(im, gold)
+        diff = float(np.abs(im[..., :3] - city_img[..., :3]).max())
+        log(f'  loaded bench city, render {spp} spp: {tm["total_s"]:.2f} s, '
+            f'launches {n9}, non-finite lane samples {tm["nonfinite"]}; max '
+            f'abs difference from phase 4\'s image {diff:.3e}; vs golden '
+            f'PSNR {p:.2f} dB, mean {100 * m_:.3f}% off')
+        if 0 in n9.values() or tm['nonfinite'] or not np.isfinite(im).all():
+            raise RuntimeError(f'loaded city: launches {n9}, '
+                               f'{tm["nonfinite"]} non-finite samples')
+        if p < PSNR_MIN or m_ > MEAN_TOL:
+            raise RuntimeError(f'loaded city off the golden: PSNR {p:.2f} '
+                               f'dB, mean {100 * m_:.3f}% off')
+        del lcity
 
     csrc = 'hydracore3_torch/csrc/'
     src = {'intersect_stream': csrc + 'traverse_wide.cuh',

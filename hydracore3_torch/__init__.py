@@ -22,13 +22,20 @@ four routes, each through hand-written CUDA kernels for ``sm_90a``:
 
 The ray-query kernels live in ``csrc/traverse.cu`` and
 ``csrc/traverse_wide.cuh`` and walk the 4-wide tables of
-``accel/wide_bvh.py``.  Materials: GLTF (lambert, lambert|metal) with
-slot-0 textures and the emissive light-source material; lights: rect,
-point and sphere lights on every route, and a lat-long env map on the
-batched integrator's routes; a pinhole camera.  Everything else raises
-``NotImplementedError``.
+``accel/wide_bvh.py``.  Materials: GLTF (``gltf`` nodes, and the old-Hydra
+lambert, lambert|metal, metal and fresnel-coat conversions) with slot-0
+textures and the emissive light-source material; lights: rect, point and
+sphere lights on every route, and a sky (a constant colour, or a lat-long
+map on the batched integrator's routes); a pinhole camera.  What a scene
+holds beyond that is refused with ``NotImplementedError``: by the loader,
+naming its ``ROADMAP.md`` item, or by the render path.
 
-Entry points: ``scene.synth.city_scene`` / ``instanced_city_scene`` /
-``box_scene`` (or ``scene.build.build_scene``) build a scene on a device
-and ``render.render`` renders it.
+Entry points: ``scene.build.load_scene(path)`` loads a Hydra XML scene
+library (``scene/hydra_xml.py``, ``scene/vsgf.py``);
+``api.hr2_create_scene()`` builds a scene in process and ``.commit()``
+writes its library (the JAX package's files, byte for byte) and loads it;
+``scene.build.build_scene(desc)`` and ``scene.synth.city_scene`` /
+``instanced_city_scene`` / ``box_scene`` build a description directly.
+Each puts the scene on the CUDA card unless given ``device=``, and
+``render.render`` renders it.
 """

@@ -36,6 +36,7 @@ from ..accel import traverse_stream as TST
 from ..accel import traverse_tlas as TT
 from ..bsdf import common as C
 from ..bsdf import dispatch as MAT
+from ..scene import build as B
 from ..scene.build import (MAT_TYPE_LIGHT_SOURCE, EMISSION_COLOR,
                            LIGHT_GEOM_RECT, LIGHT_GEOM_ENV, LIGHT_GEOM_SPHERE,
                            LIGHT_GEOM_POINT)
@@ -186,8 +187,10 @@ def nearest_hit(scene, ray_pos, ray_dir, t_min, t_max):
 
 def _remap_material_id(scene, mat_id, inst_id):
     """RemapMaterialId (integrator_pt_mat.cpp:530-573): the instance's
-    remap list, (from, to) pairs sorted by from, searched by bisection.
-    Reads past the table's end clamp to its last entry, as the JAX
+    remap list, (from, to) pairs sorted by from, searched by bisection
+    over its pairs.  (The JAX package bisects over as many entries as the
+    list has numbers, twice its pairs, and so can match a pair of the next
+    list.)  Reads past the table's end clamp to its last entry, as the JAX
     package's gathers do (lanes without a list read there and are
     discarded)."""
     table = scene.all_remap_lists
@@ -201,7 +204,8 @@ def _remap_material_id(scene, mat_id, inst_id):
     rl = torch.clamp(remap_list_id, min=0)
     base = scene.all_remap_lists_size
     r_offset = at(base + rl)
-    r_size = at(base + rl + 1) - r_offset
+    r_size = torch.div(at(base + rl + 1) - r_offset, 2,
+                       rounding_mode='floor')
 
     lo = torch.zeros_like(mat_id)
     hi = r_size - 1
@@ -470,11 +474,24 @@ def kernel_hit_environment(scene, meta, state: RayState) -> RayState:
 
 def check_scene(meta):
     """Refuse what this path cannot trace or shade: small scenes (no
-    cluster BVH of any kind) and lights other than rect, point, sphere and
-    env."""
+    cluster BVH of any kind), materials other than GLTF and the light
+    source, GLTF slot-2/3 maps, lights other than rect, point, sphere and
+    env, and a camera-back texture."""
     if not (meta.use_stream or meta.use_stream_tlas or meta.use_pallas):
         raise NotImplementedError('the batched path needs a streamed, '
                                   'two-level or cluster-BVH scene')
+    other = set(meta.mat_types_present) - {B.MAT_TYPE_GLTF,
+                                           B.MAT_TYPE_LIGHT_SOURCE}
+    if other:
+        raise NotImplementedError(
+            f'material types {sorted(other)} are not ported to the batched '
+            f'path (GLTF and light-source only; {B.ITEM_MATERIALS})')
+    if meta.has_four_textures:
+        raise NotImplementedError('GLTF slot-2/3 texture maps are not ported '
+                                  f'({B.ITEM_LIGHTS_SPECTRAL})')
+    if meta.has_cam_back:
+        raise NotImplementedError('a camera-back texture is not ported '
+                                  f'({B.ITEM_LIGHTS_SPECTRAL})')
     other = set(meta.light_geom_types) - {LIGHT_GEOM_RECT, LIGHT_GEOM_ENV,
                                           LIGHT_GEOM_SPHERE, LIGHT_GEOM_POINT}
     if other:

@@ -310,6 +310,10 @@ def why_unsupported(scene, meta, integrator: str = 'mispt'):
         return 'more than 128 materials or lights, or no light'
     if meta.has_env_map:
         return 'an env map on miss is not ported to the megakernel'
+    if meta.has_cam_back:
+        return 'a camera-back texture is not ported to the megakernel'
+    if meta.has_four_textures:
+        return 'GLTF slot-2/3 texture maps are not ported to the megakernel'
     other = set(meta.mat_types_present) - {MAT_TYPE_GLTF,
                                            MAT_TYPE_LIGHT_SOURCE}
     if other:

@@ -21,16 +21,79 @@ FILTER_LINEAR = 1
 ADDR_WRAP = 0
 ADDR_CLAMP = 1
 ADDR_MIRROR = 2
+# sampled as clamp, as the JAX package samples them
+ADDR_BORDER = 3
+ADDR_MIRROR_ONCE = 4
+
+_ADDR_FROM_STR = {
+    'wrap': ADDR_WRAP, 'clamp': ADDR_CLAMP, 'mirror': ADDR_MIRROR,
+    'border': ADDR_BORDER, 'mirror_once': ADDR_MIRROR_ONCE,
+}
 
 
-def decode_image(data: np.ndarray) -> np.ndarray:
-    """[H, W, 4] uint8 (sRGB) or float32 (linear) -> [H, W, 4] float32
-    linear (the decode of ``hydracore3_tpu.ops.texture.decode_chunk``)."""
+def addr_mode_from_string(s: str) -> int:
+    return _ADDR_FROM_STR.get(s, ADDR_WRAP)
+
+
+def decode_image(data: np.ndarray, srgb_to_linear: bool = True
+                 ) -> np.ndarray:
+    """[H, W, 4] uint8 (sRGB unless ``srgb_to_linear`` is False) or float32
+    (linear) -> [H, W, 4] float32 linear."""
     if data.dtype != np.uint8:
         return np.asarray(data, np.float32)
     img = data.astype(np.float32) / 255.0
-    img[..., :3] = np.power(img[..., :3], 2.2, dtype=np.float32)
+    if srgb_to_linear:
+        img[..., :3] = np.power(img[..., :3], 2.2, dtype=np.float32)
     return img
+
+
+def decode_chunk(path: str, width: int, height: int, bpp: int, offset: int,
+                 srgb_to_linear: bool) -> np.ndarray:
+    """A Hydra ``.image4ub`` / ``.image4f`` chunk -> [H, W, 4] float32
+    linear (``hydracore3_tpu/ops/texture.py`` ``decode_chunk``).
+
+    A chunk is int32 w, int32 h, then w * h * 4 bytes (u8 RGBA) or
+    w * h * 4 float32.  ``offset`` is where the texels start (the library's
+    ``offset`` attribute, 8 for a chunk of its own), the 8-byte header just
+    before them, so several chunks may share one file; the JAX package
+    reads the header at byte 0 whatever the offset, which is the same for
+    the offsets 0 and 8 a library of one chunk per file carries.  ``width``
+    and ``height`` are the library's; the header's are used."""
+    head = max(int(offset) - 8, 0)
+    with open(path, 'rb') as f:
+        f.seek(head)
+        w, h = (int(x) for x in np.frombuffer(f.read(8), '<i4', count=2))
+        if w == 0 or h == 0:
+            return np.ones((1, 1, 4), np.float32)
+        n = w * h * 4
+        if bpp == 16:
+            data = np.frombuffer(f.read(4 * n), '<f4', count=n)
+        else:
+            data = np.frombuffer(f.read(n), np.uint8, count=n)
+    return decode_image(data.reshape(h, w, 4), srgb_to_linear)
+
+
+def load_image_file(path: str, srgb_to_linear: bool) -> np.ndarray:
+    """A .bmp / .png / .jpg / .exr file through imageio -> [H, W, 4] float32
+    linear.  Raises, naming the file, where imageio is missing."""
+    try:
+        import imageio.v3 as iio
+    except ImportError as e:
+        raise ImportError(f'{path}: reading this image format needs imageio, '
+                          'which is not installed; only .image4ub / .image4f '
+                          'chunks load without it') from e
+    img = np.asarray(iio.imread(path))
+    if img.dtype == np.uint8:
+        imgf = img.astype(np.float32) / 255.0
+        if srgb_to_linear:
+            imgf = np.power(imgf, 2.2, dtype=np.float32)
+    else:
+        imgf = img.astype(np.float32)
+    if imgf.ndim == 2:
+        imgf = imgf[..., None].repeat(3, axis=-1)
+    if imgf.shape[-1] == 3:
+        imgf = np.concatenate([imgf, np.ones_like(imgf[..., :1])], axis=-1)
+    return imgf
 
 
 class TexturePoolBuilder:
@@ -57,6 +120,11 @@ class TexturePoolBuilder:
 
     def __len__(self) -> int:
         return len(self._table)
+
+    def slot_image(self, slot: int) -> np.ndarray:
+        """[H, W, 4] texels of a slot."""
+        _, w, h = self._table[slot][:3]
+        return self._texels[slot].reshape(h, w, 4)
 
     def slot_const_value(self, slot: int):
         """The single texel of a 1x1 slot (for the const-texture fold), or

@@ -2,10 +2,12 @@
 
 The city is the counterpart of ``hydracore3_tpu/scene/synth.py``: the same
 geometry, procedural textures, lights and camera from the same numpy RNG
-draws in the same order, emitted as an in-memory ``SceneDesc`` (no XML) and
-built by ``scene.build.build_scene``.  At the bench size (48 x 48 blocks,
-subdiv 3, 64 x 64 ground) the city has 215,554 triangles: 48^2 buildings
-of 90, an 8192-triangle ground and the area light's 2.
+draws in the same order, emitted as an in-memory ``SceneDesc`` (with the
+JAX package's names, so that ``api.write_library`` writes the JAX
+package's files byte for byte) and built by ``scene.build.build_scene``.
+At the bench size (48 x 48 blocks, subdiv 3, 64 x 64 ground) the city has
+215,554 triangles: 48^2 buildings of 90, an 8192-triangle ground and the
+area light's 2.
 
 The instanced city (``instanced_city_scene``) is one unit building mesh of
 90 triangles placed ``n_blocks``^2 times with a rotation and a non-uniform
@@ -118,10 +120,10 @@ def build_city(n_blocks: int = 48, subdiv: int = 3, seed: int = 7,
                                   'textured=True')
     rng = np.random.default_rng(seed)
     sd = B.SceneDesc(width=width, height=height, trace_depth=depth, spp=64)
-    t_ground = sd.add_texture(_asphalt_texture(rng))
-    t_walls = [sd.add_texture(_facade_texture(rng, c))
-               for c in [(0.65, 0.55, 0.45), (0.55, 0.60, 0.70),
-                         (0.70, 0.45, 0.40), (0.75, 0.70, 0.60)]]
+    t_ground = sd.add_texture(_asphalt_texture(rng), 'asphalt')
+    t_walls = [sd.add_texture(_facade_texture(rng, c), f'facade{i}')
+               for i, c in enumerate([(0.65, 0.55, 0.45), (0.55, 0.60, 0.70),
+                                      (0.70, 0.45, 0.40), (0.75, 0.70, 0.60)])]
     # facade repeats every 4 world units, asphalt every 8 (street pitch)
     fm = (0.25, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0)
     gm = (0.125, 0.0, 0.0, 0.0, 0.0, 0.125, 0.0, 0.0)
@@ -136,7 +138,7 @@ def build_city(n_blocks: int = 48, subdiv: int = 3, seed: int = 7,
                                            diffuse_color=(1.0, 1.0, 1.0),
                                            diffuse_tex_id=t,
                                            diffuse_tex_matrix=fm))
-    t_env = sd.add_texture(_sky_env_map())
+    t_env = sd.add_texture(_sky_env_map(), 'sky')
     sd.env = B.EnvLightDesc(color=(1.0, 1.0, 1.0), multiplier=1.0,
                             tex_id=t_env)
 
@@ -317,9 +319,9 @@ def build_box(width: int = 64, height: int = 48, depth: int = 4,
         sd.instances.append((len(sd.meshes) - 1, None))
     lmat = np.eye(4, dtype=np.float32)
     lmat[1, 3] = s - 0.05  # just under the ceiling
-    sd.lights.append(B.AreaLightDesc(color=(1.0, 1.0, 1.0), multiplier=12.0,
-                                     half_width=1.0, half_length=1.0,
-                                     matrix=lmat))
+    sd.lights.append(B.AreaLightDesc(name='top', color=(1.0, 1.0, 1.0),
+                                     multiplier=12.0, half_width=1.0,
+                                     half_length=1.0, matrix=lmat))
     if textured:
         pm = np.eye(4, dtype=np.float32)
         pm[:3, 3] = (-2.0, 2.0, 0.0)

@@ -848,3 +848,70 @@ def test_dda_settles_a_tie_met_in_two_cells_as_plain(cuda):
                             wide=wide.to(cuda))
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize('name', ['box', 'city'])
+def test_loaded_library_matches_plain_and_build(cuda, name, tmp_path):
+    """The small box and the small city written by the port's writer and
+    loaded by ``load_scene`` (and committed through ``api``) on the card,
+    where both go with no device given: K1's two entry points (the box)
+    and K2's and K3's camera query (the city) against their plain versions
+    on every lane, and a render equal to the render of ``build_scene`` of
+    the same description."""
+    from hydracore3_torch import api
+    from hydracore3_torch import render as R
+    from hydracore3_torch.models import integrator_pt as IPT
+    from hydracore3_torch.ops import rng as RNG
+    from hydracore3_torch.scene import build as B
+    from hydracore3_torch.scene import synth
+    if name == 'box':
+        desc, accel = synth.build_box(128, 96, 6, textured=True), 'auto'
+    else:
+        desc, accel = synth.build_city(**{
+            k: v for k, v in CITY_KW.items() if k != 'accel'}), 'stream'
+    path = api.write_library(desc, str(tmp_path))
+    # with no device given, the load and the commit go to the card
+    scene, meta = B.load_scene(path, accel=accel)
+    handle = api.hr2_create_scene()
+    handle.desc = desc
+    committed, cmeta = handle.commit(str(tmp_path / 'commit'), accel=accel)
+    built, bmeta = B.build_scene(desc, device=cuda, accel=accel)
+    assert meta == bmeta == cmeta
+    assert scene.proj_inv.is_cuda and committed.tri_shade.is_cuda
+    if name == 'box':
+        pk = TMK.pack(scene, meta)
+        xy, su = TMK.lane_setup(meta, cuda)
+        depth = meta.trace_depth
+        close, equal, _ = TMK.lanes_agree(
+            TMK.sample_pass(pk, xy, su, depth),
+            TMK.sample_pass_plain(pk, xy, su, depth), 3)
+        assert close == 1.0 and equal == 1.0
+        sf, su2 = TMK.regen_pass(pk, xy, None, su, 16, depth, first=True)
+        sf_p, su_p = TMK.regen_iters_plain(pk, xy, None, su, 16, depth,
+                                           first=True)
+        close, equal, _ = TMK.lanes_agree(
+            TMK.regen_pass(pk, xy, sf, su2, 16, depth),
+            TMK.regen_iters_plain(pk, xy, sf_p, su_p, 16, depth),
+            TMK.RU_NROWS)
+        assert close == 1.0 and equal == 1.0
+        renders = [R.render(s, meta, spp=4, regen=regen)
+                   for regen in (False, True) for s in (scene, built)]
+    else:
+        pix = torch.arange(meta.width * meta.height, device=cuda)
+        st = IPT.kernel_init_eye_ray(scene, meta, RNG.gen_init(pix), pix)
+        n = pix.shape[0]
+        q = (st.ray_pos, st.ray_dir, torch.zeros(n, device=cuda),
+             torch.full((n,), IPT_FLT_MAX, device=cuda))
+        want = TTS.intersect_plain(scene.st_woop.cpu(), *(x.cpu() for x in
+                                                          q[:3]),
+                                   torch.clamp(q[3], max=TTS.T_MAX_CAP).cpu())
+        assert (want[1] >= 0).float().mean() > 0.5
+        for got in (TTS.intersect_stream(None, None, None, *q,
+                                         wide=scene.st_wide),
+                    TTD.intersect_march(scene.st_grid, None, *q,
+                                        wide=scene.st_wide)):
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+        renders = [R.render(s, meta, spp=4) for s in (scene, built)]
+    for a, b in zip(renders[0::2], renders[1::2]):
+        assert np.isfinite(a).all() and np.array_equal(a, b)

@@ -285,7 +285,11 @@ def test_auto_routes_big_instanced_city_two_level():
 
 def test_remap_material_id_matches_jax():
     """Made-up remap tables: three lists of sorted (from, to) pairs, then
-    their offsets; instances with and without a list."""
+    their offsets; instances with and without a list.  The port's lookup
+    equals each instance's own list on every lane, and the JAX lookup on
+    every lane whose bisection stays inside the list (the JAX package
+    bisects over twice the list's pairs, so an id above the list's last
+    ``from`` reads the next list)."""
     rng = np.random.default_rng(4)
     lists = [[1, 7, 3, 9, 8, 2], [0, 5], [2, 4, 5, 6, 6, 0, 9, 1]]
     flat, offsets = [], []
@@ -310,7 +314,13 @@ def test_remap_material_id_matches_jax():
                                               jnp.asarray(inst_id)))
     got = TIPT._remap_material_id(tscene, torch.from_numpy(mat_id).long(),
                                   torch.from_numpy(inst_id).long()).numpy()
-    np.testing.assert_array_equal(got, want)
+    rl = remap_inst[np.clip(inst_id, 0, 39), 0]
+    ref = np.array([dict(zip(lists[r][0::2], lists[r][1::2])).get(m, m)
+                    if r >= 0 else m for m, r in zip(mat_id, rl)])
+    np.testing.assert_array_equal(got, ref)
+    inside = (rl < 0) | (mat_id <= np.array([max(l[0::2]) for l in lists])[rl])
+    np.testing.assert_array_equal(got[inside], want[inside])
+    assert (~inside).sum() > 100 and (got != want).any()
     assert (got != mat_id).sum() > 100       # some ids were remapped
 
 
