@@ -46,9 +46,9 @@ Phases (any failure raises and the exit code is not 0):
      all 1,048,576 lanes each (hit flags and instance ids, t where the
      triangle is the same, equal-t pairs counted), each query with its
      time, its counted child-box tests, triangle tests and instance entries
-     per ray and the bound they set; ``render.render`` at 16
-     spp; the same city flattened (``accel='stream'``, K2/K3) at 16 spp with
-     the same seeds: PSNR >= 35 dB, means within 2%, the share of pixels
+     per ray and the bound they set; ``render.render`` at RATE_SPP
+     (cut from 16 to make room for phase 20); the same city flattened
+     (``accel='stream'``, K2/K3) at RATE_SPP with the same seeds: PSNR >= 35 dB, means within 2%, the share of pixels
      equal to 1e-3, the device memory of both builds (the contract tables
      and the kernel's wide tables apart); and the 48-block
      instanced city built under ``accel='auto'`` (must go two-level);
@@ -63,8 +63,9 @@ Phases (any failure raises and the exit code is not 0):
      version the lowest, so the reported triangle is tested against its
      lane's ray with the plain Moller-Trumbore arithmetic and must be valid
      on every occluded lane;
-     ``render.render`` at 16 spp, and the same scene streamed at 16 spp:
-     PSNR >= 35 dB, means within 2%;
+     ``render.render`` at RATE_SPP, and the same scene streamed at
+     RATE_SPP (both cut from 16 to make room for phase 20): PSNR >= 35 dB,
+     means within 2%;
   8. the cell-pass wavefront (K6): ``intersect_dda`` on the bench city's
      camera and sorted first-bounce rays (nearest) and on bounce 0's shadow
      rays (any-hit), over a grid without outliers and ``scene.st_wide``
@@ -251,8 +252,25 @@ Phases (any failure raises and the exit code is not 0):
      (K3/K2, unsorted) at 16 spp against their goldens (>= 35 dB, mean
      within 2%), the box at the plugin golden's size and seeds
      (tests/goldens/plugin_box_128.npz, >= 60 dB), the table-lens camera's
-     share of rays through its stack and a finite image.
-  Phases 10-19 record a missed check and fail the run after every phase
+     share of rays through its stack and a finite image;
+  20. data parallelism (``parallel/mesh.py``), the ray count and the hit's
+     gradient on the two-level classes: (a) ``init_distributed()`` from
+     torchrun's variables (127.0.0.1, a free port, world size 1, rank 0):
+     the NCCL backend and one right ``all_reduce``; (b) ``render_sharded``
+     of the bench city (16 spp, tiles of 1,048,576 lanes) equal to phase
+     4's image bit for bit with phase 4's K3 and K2 launches, its seconds
+     and Msamples/s beside phase 4's; (c) ``sharded_train_step`` on the DR
+     box at 512 x 512 equal to ``dr.loss_and_grad``'s loss and gradient bit
+     for bit (both under torch's deterministic algorithms), 12 K5 launches;
+     (d) ``count_rays_pass`` of the bench city, one pass through K3/K2: its
+     nearest-hit and shadow rays and Mrays/s over phase 4's render time;
+     (e) rays that autograd tracks through K4 (the instanced city's camera
+     query; its plain walk on the first 65,536 lanes) and K4m (the motion
+     box's camera, shadow and bounce rays): hits equal to the plain walk's
+     and the backward within 1e-4 of the plain walk's autograd gradient on
+     99.9% of the lanes.  The process group is destroyed at the phase's
+     end.
+  Phases 10-20 record a missed check and fail the run after every phase
   has run, as the equal-t ties of phase 3 do.
 Every kernel's ``bound_ms`` is the larger of its bytes (rays and outputs
 once, each table once) over 3.35 TB/s and its operations over 67 TFLOP/s
@@ -280,14 +298,21 @@ hydracore3_tpu/accel/two_level.py) carries the motion box's figures and
 the motion city's (``motion_box``, ``motion_city``); K5's entry Whitted's,
 the G-buffer's and the layers' (``whitted_gbuffer_layers``) and
 differentiable rendering's and the plugin box's (``dr_plugin_box``); K2's
-and K3's the plugin city's (``plugin_city``).
+and K3's the plugin city's (``plugin_city``).  Phase 20's launches add to
+the K2, K3, K4, K5 and K4m entries' counts, and its figures stand in
+``data_parallel_city`` and ``count_rays_pass`` (K2, K3),
+``data_parallel_dr`` (K5) and ``two_level_grad`` (K4, K4m).
 The kernel sources (csrc/traverse.cu with csrc/traverse_wide.cuh, which
 holds K2-K5 and K4's motion variant, csrc/megakernel.cu in its seven
 variants, and the counting build of each) build in parallel in phase 1.
 To make room for phase 19, PR 15 cut eight full-frame renders that no
 golden holds from 16 spp to RATE_SPP (phases 11 and 12's ``naivept`` and
 ``shadowpt``, phase 16's thin lens and lens stack, phase 17's direct and
-indirect layers); no check was cut.  The line before the last is a JSON record of the kernels;
+indirect layers); to make room for phase 20, four more were cut (phase
+6's two-level and flattened instanced city, phase 7's cluster-route and
+streamed mid-size city; the K4 and K5 lines' counts drop by their share);
+no check was cut.  The line before the last is a JSON record of the
+kernels;
 the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
 network.
 """
@@ -344,11 +369,12 @@ SPEC_CHANNELS = 16
 # phase 16: the feature scenes' renders, 16 spp (a full frame's 8 x 8
 # block then holds as many samples as the 1,024-sample golden's pixel)
 FEAT_SPP = 16
-# full-frame renders that no golden holds and whose launches no kernel
-# line's count takes (phases 11 and 12's naivept and shadowpt, phase 16's
-# thin lens and lens stack, phase 17's direct and indirect layers): their
-# launches, rates and finiteness; 16 spp until PR 15, cut to make room for
-# phase 19
+# full-frame renders that no golden holds (phases 11 and 12's naivept and
+# shadowpt, phase 16's thin lens and lens stack, phase 17's direct and
+# indirect layers, cut from 16 spp to make room for phase 19; phase 6's
+# two-level and flattened instanced city and phase 7's cluster and
+# streamed mid-size city, each pair on the same seeds, cut from 16 spp to
+# make room for phase 20): their launches, rates and finiteness
 RATE_SPP = 4
 # phase 17: the motion scenes (full width, 16 spp; the goldens' first 16
 # samples at their size and seeds, whose random streams the card follows:
@@ -368,6 +394,9 @@ MOTION_BOX = dict(width=1024, height=768, depth=6)
 MOTION_CITY = dict(n_blocks=32, subdiv=3, ground_subdiv=32, width=1024,
                    height=1024, depth=5)
 MOTION_SPP = 16
+# phases 6 and 20: the instanced city
+ICITY = dict(n_blocks=32, subdiv=3, ground_subdiv=32, width=1024,
+             height=1024, depth=5)
 MOTION_SEED_PSNR = CITY_ZOO_SMALL_PSNR
 MOTION_SEED_PIXELS = 0.999
 RT_COLOR_TOL = 1e-3
@@ -651,7 +680,7 @@ def phase19(dev, city, gold_box, gold_city, counters, zero_counts,
             golden_size):
     """Differentiable rendering on the DR box (K5) and the camera plugin on
     the box (K5) and the bench city (``city``, K3/K2).  Returns its
-    record."""
+    record and the DR box (scene, meta)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from hydracore3_torch import camera_plugin as CP
     from hydracore3_torch import render as R
@@ -1021,6 +1050,252 @@ def phase19(dev, city, gold_box, gold_city, counters, zero_counts,
     rec['plugin']['lens_valid_share'] = valid
     tmp.cleanup()
     log(f'  phase 19: {time.perf_counter() - t19:.1f} s')
+    return rec, (dsc, dmt)
+
+
+def phase20(dev, city, city_img, city4, dr_box, counters, zero_counts,
+            first_bounce_queries):
+    """Data parallelism (``parallel/mesh.py``) over NCCL at world size 1,
+    ``count_rays_pass`` and the hit's gradient on the two-level classes
+    (K4, K4m).  ``city`` is the bench city, ``city_img`` phase 4's image,
+    ``city4`` phase 4's seconds and launches and ``dr_box`` phase 19's DR
+    box.  Returns its record."""
+    import socket
+    import torch.distributed as dist
+    from hydracore3_torch.accel import hit_grad as HG
+    from hydracore3_torch.accel import traverse_tlas as TT
+    from hydracore3_torch.accel import two_level as TL2
+    from hydracore3_torch.accel import wide_bvh as WB
+    from hydracore3_torch.models import dr as DR
+    from hydracore3_torch.models import integrator_pt as IPT
+    from hydracore3_torch.ops import rng as RNG
+    from hydracore3_torch.parallel import mesh as M
+    from hydracore3_torch.scene import build as B
+    from hydracore3_torch.scene import synth
+    import zoo_scenes as Z
+    t20 = time.perf_counter()
+
+    def at(msg):
+        log(f'  {msg} ({time.perf_counter() - t20:.1f} s into phase 20)')
+
+    def launched():
+        return {w_.__name__: w_.launches for w_ in counters if w_.launches}
+
+    rec = {}
+    scene, meta = city
+    n = meta.width * meta.height
+    pix = torch.arange(n, device=dev)
+    streamed = {'intersect_march', 'intersect_stream'}
+
+    # (a) the process group: torchrun's variables, world size 1, NCCL
+    with socket.socket() as s_:
+        s_.bind(('127.0.0.1', 0))
+        port = s_.getsockname()[1]
+    os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                      WORLD_SIZE='1', RANK='0')
+    t0 = time.perf_counter()
+    mesh = M.init_distributed()
+    x = torch.full((4,), 3.0, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ok = (mesh.backend == 'nccl' and mesh.world_size == 1
+          and mesh.device == dev and bool((x == 3.0).all()))
+    log(f'[20] data parallelism: init_distributed() from MASTER_ADDR, '
+        f'MASTER_PORT {port}, WORLD_SIZE 1, RANK 0: backend '
+        f'{mesh.backend}, rank {mesh.rank} of {mesh.world_size} on '
+        f'{mesh.device}, one all_reduce right {bool((x == 3.0).all())}; '
+        f'{init_s:.2f} s')
+    check(ok, f'(a) process group: backend {mesh.backend}, world '
+          f'{mesh.world_size}')
+    rec['a'] = dict(backend=mesh.backend, seconds=init_s)
+
+    # (b) the bench city sharded, against phase 4's render
+    zero_counts()
+    t0 = time.perf_counter()
+    img = M.render_sharded(mesh, scene, meta, spp=16, tile_size=1 << 20)
+    secs = time.perf_counter() - t0
+    n_b = launched()
+    same = bool(np.array_equal(img, city_img))
+    want = {k: city4['launches'][k] for k in streamed}
+    log(f'  (b) render_sharded, the bench city {meta.width}x{meta.height} '
+        f'16 spp over 1 rank: {secs:.2f} s, {n * 16 / secs / 1e6:.4f} '
+        f'Msamples/s (phase 4: {city4["seconds"]:.2f} s, '
+        f'{n * 16 / city4["seconds"] / 1e6:.4f}); launches {n_b} (phase '
+        f'4: {want}); equal to phase 4\'s image bit for bit {same}')
+    check(same and n_b == want and all(want.values()),
+          f'(b) sharded city: equal {same}, '
+          f'launches {n_b} vs {want}')
+    rec['b'] = dict(seconds=secs, phase4_seconds=city4['seconds'],
+                    launches=n_b, equal=same)
+    del img
+    at('(b) checked')
+
+    # (c) one sharded DR step on phase 19's DR box against loss_and_grad,
+    # both with torch's deterministic algorithms (the texel gradient's
+    # accumulation otherwise varies in its last bits between runs)
+    dsc, dmt = dr_box
+    setup = DR.put_diff_tex(dsc, Z.dr_tex_slot(dsc))
+    dn = dmt.width * dmt.height
+    dpix = torch.arange(dn, device=dev)
+    params = torch.from_numpy(Z.dr_gold_params(setup.size)).to(dev)
+    ref = torch.from_numpy(Z.ior_gold_ref(dn)).to(dev)
+
+    def loss_fn(p, sc, rng_, px, ref_):
+        return DR.pixel_loss(p, sc, dmt, setup, rng_, px, ref_)[0]
+
+    step = M.sharded_train_step(mesh, dsc, dmt, loss_fn)
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        loss, g = step(params, RNG.gen_init(dpix), dpix, ref)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        n_c = launched()
+        t0 = time.perf_counter()
+        loss2, g2, _, _ = DR.loss_and_grad(params, dsc, dmt, setup,
+                                           RNG.gen_init(dpix), dpix, ref)
+        torch.cuda.synchronize()
+        lg_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(det)
+    same = bool(torch.equal(loss, loss2) and torch.equal(g, g2))
+    diff = int((g != g2).sum())
+    log(f'  (c) sharded_train_step, the DR box {dmt.width}x{dmt.height} '
+        f'depth {dmt.trace_depth} over 1 rank: loss {float(loss):.6f}, '
+        f'{int((g.abs().sum(-1) > 0).sum())} of {setup.size} texels with a '
+        f'non-zero gradient, {step_s:.2f} s (loss_and_grad {lg_s:.2f} s), '
+        f'launches {n_c}; loss and '
+        f'gradient equal to dr.loss_and_grad\'s bit for bit {same} '
+        f'({diff} gradient entries differ)')
+    check(same and n_c == {'intersect_clusters': 2 * dmt.trace_depth},
+          f'(c) sharded DR step: equal {same}, launches {n_c}')
+    rec['c'] = dict(loss=float(loss), seconds=step_s,
+                    loss_and_grad_seconds=lg_s, launches=n_c,
+                    equal=same)
+    del dsc, dr_box, g, g2
+    at('(c) checked')
+
+    # (d) count_rays_pass on the bench city, one pass
+    zero_counts()
+    t0 = time.perf_counter()
+    n_near, n_shadow = IPT.count_rays_pass(scene, meta, RNG.gen_init(pix),
+                                           pix)
+    count_s = time.perf_counter() - t0
+    n_d = launched()
+    mrays = (n_near + n_shadow) * 16 / city4['seconds'] / 1e6
+    log(f'  (d) count_rays_pass, the bench city, one pass: {n_near} '
+        f'nearest-hit rays, {n_shadow} shadow rays ({count_s:.2f} s, '
+        f'launches {n_d}); over phase 4\'s 16 spp in '
+        f'{city4["seconds"]:.2f} s: {mrays:.3f} Mrays/s')
+    check(set(n_d) == streamed and 0 < n_shadow < n_near <= n * 5,
+          f'(d) count_rays_pass: {n_near}, {n_shadow}, launches {n_d}')
+    rec['d'] = dict(n_nearest=n_near, n_shadow=n_shadow, seconds=count_s,
+                    mrays_s=mrays, launches=n_d)
+    at('(d) checked')
+
+    # (e) the hit's gradient on the two-level classes: K4 on the instanced
+    # city's camera query (its plain walk on the first 65,536 lanes: the
+    # walk's Woop test at its hit under autograd, since the dense walk's
+    # gradient is NaN at its padding rows), K4m on the motion box's three
+    # queries (the dense plain walk under autograd, every lane)
+    rec['e'] = {}
+
+    def backward_check(label, fn, plain, q, sub):
+        """The Function's (t, tri, u, v, inst) and gradient of a seeded
+        cotangent against ``plain``'s on the lanes ``sub``."""
+        nq = q[0].shape[0]
+        cot = torch.from_numpy(np.random.default_rng(len(rec['e'])).normal(
+            size=(3, nq)).astype(np.float32)).to(dev)
+
+        def grads(f, pos, d, c):
+            p_, q_ = pos.clone().requires_grad_(), d.clone().requires_grad_()
+            t, tri, u, v, inst = f(p_, q_)
+            loss_ = sum((torch.where(tri >= 0, x_, 0.0) * c_).sum()
+                        for x_, c_ in zip((t, u, v), c))
+            return (tri, inst, *torch.autograd.grad(loss_, (p_, q_)))
+
+        zero_counts()
+        ka = grads(fn, q[0], q[1], cot)
+        n_k = launched()
+        pa = grads(plain, q[0][sub], q[1][sub], cot[:, sub])
+        hits_eq = bool(torch.equal(ka[0][sub], pa[0])
+                       and torch.equal(ka[1][sub], pa[1]))
+        kfin = bool(torch.isfinite(ka[2]).all() and torch.isfinite(
+            ka[3]).all())
+        fin = torch.isfinite(pa[2]).all(-1) & torch.isfinite(pa[3]).all(-1)
+        close = (torch.isclose(ka[2][sub], pa[2], rtol=1e-4,
+                               atol=1e-4).all(-1)
+                 & torch.isclose(ka[3][sub], pa[3], rtol=1e-4,
+                                 atol=1e-4).all(-1))
+        share = float(close[fin].float().mean())
+        log(f'  (e) {label}: {int((ka[0] >= 0).sum())} of {nq} lanes hit, '
+            f'launches {n_k}; against the plain walk on '
+            f'{pa[0].shape[0]} lanes: hits equal {hits_eq}, the backward '
+            f'finite {kfin}, within 1e-4 of the plain autograd gradient on '
+            f'{share:.6f} of the {int(fin.sum())} lanes where that is finite')
+        check(hits_eq and kfin and share >= AGREE_MIN
+              and float(fin.float().mean()) >= 0.99,
+              f'(e) {label}: hits {hits_eq}, finite {kfin}, close {share}')
+        rec['e'][label] = dict(launches=n_k, close=share, hits_equal=hits_eq)
+        return n_k
+
+    icity, imeta = synth.instanced_city_scene(**ICITY, accel='stream_tlas',
+                                              device=dev)
+    pack = icity.tt
+    cam, _, _, _ = first_bounce_queries(icity, imeta)
+    t_min, t_max = cam[2], cam[3]
+    sub = slice(0, 65536)
+
+    def tlas_plain(p_, q_):
+        with torch.no_grad():
+            _, tri, _, _, inst = TT.intersect_tlas_plain(
+                pack, p_, q_, t_min[sub], torch.clamp(t_max[sub],
+                                                      max=TT.T_MAX_CAP))
+        op, od = TT.to_object_space(pack.inst_f[inst.clamp(min=0)].T, p_, q_)
+        t, u, v, _ = WB._woop(pack.woop[tri.clamp(min=0)], op, od)
+        return t, tri, u, v, inst
+
+    n_k4 = backward_check(
+        'K4, the instanced city\'s camera query', lambda p_, q_:
+        HG.tlas_with_grad(pack, p_, q_, t_min, t_max), tlas_plain, cam, sub)
+    del icity, pack, cam
+    tmp = tempfile.TemporaryDirectory()
+    mb, mbm = B.load_scene(Z.write_motion_box(os.path.join(tmp.name, 'mb'),
+                                              **MOTION_BOX), device=dev)
+    tl = mb.two_level
+    mpix = torch.arange(mbm.width * mbm.height, device=dev)
+    mtime = IPT.kernel_init_eye_ray(mb, mbm, RNG.gen_init(mpix), mpix).time
+    n_k4m = 0
+    for qlabel, q in zip(('camera', 'shadow', 'bounce'),
+                         first_bounce_queries(mb, mbm)[:3]):
+        def k4m(p_, q_, q=q):
+            t, tri, inst, u, v = HG.two_level_with_grad(tl, p_, q_, q[2],
+                                                        q[3], mtime)
+            return t, tri, u, v, inst
+
+        def k4m_plain(p_, q_, q=q):
+            t, tri, inst, u, v = TL2.intersect_two_level_plain(
+                tl, p_, q_, q[2], q[3], mtime)
+            return t, tri, u, v, inst
+
+        n_k4m += backward_check(f'K4m, the motion box\'s {qlabel} rays',
+                                k4m, k4m_plain, q, slice(None)).get(
+            'intersect_two_level', 0)
+    tmp.cleanup()
+    at('(e) checked')
+    dist.destroy_process_group()
+    for k in ('MASTER_ADDR', 'MASTER_PORT', 'WORLD_SIZE', 'RANK'):
+        os.environ.pop(k, None)
+    rec['launches'] = {k: n_b.get(k, 0) + n_d.get(k, 0) for k in streamed}
+    rec['launches'].update(
+        intersect_clusters=n_c.get('intersect_clusters', 0),
+        intersect_stream_tlas=n_k4.get('intersect_stream_tlas', 0),
+        intersect_two_level=n_k4m)
+    rec['seconds'] = time.perf_counter() - t20
+    log(f'  phase 20: {rec["seconds"]:.1f} s')
     return rec
 
 
@@ -1296,6 +1571,7 @@ def main():
     gold = np.load(os.path.join(REPO, 'tests', 'goldens',
                                 'city_bench_128.npz'))['img'].astype(np.float32)
     city_img = img
+    city4 = dict(seconds=timing['total_s'], launches=dict(launches))
     psnr, mean_rel = psnr_mean(img, gold)
     log(f'  PSNR vs golden {psnr:.2f} dB; mean {100 * mean_rel:.3f}% off')
     if psnr < PSNR_MIN or mean_rel > MEAN_TOL:
@@ -1506,8 +1782,6 @@ def main():
                                f'{100 * m_:.3f}% off')
 
     # ---- 6. the instanced city through the two-level kernel (K4) ---------
-    ICITY = dict(n_blocks=32, subdiv=3, ground_subdiv=32, width=1024,
-                 height=1024, depth=5)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1563,7 +1837,7 @@ def main():
     log(f'  shadow: {traced6} traced rays')
     del plain6, k6, cam6, shadow6, bounce6
     tl_img, launches['intersect_tlas'], _ = render_checked(
-        'two-level', tl_scene, tl_meta, TT.intersect_stream_tlas)
+        'two-level', tl_scene, tl_meta, TT.intersect_stream_tlas, RATE_SPP)
     del tl_scene, pack
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -1577,7 +1851,7 @@ def main():
         f'{(torch.cuda.memory_allocated() - mem0) / 2**20:.2f} MiB on the '
         f'card (two-level: {tl_mem / 2**20:.2f} MiB)')
     flat_img, _, _ = render_checked('flattened', flat_scene, flat_meta,
-                                    TDD.intersect_march)
+                                    TDD.intersect_march, RATE_SPP)
     same_image('two-level vs flattened', tl_img, flat_img)
     del flat_scene, tl_img, flat_img
     _, big_meta = B.build_scene(synth.build_instanced_city(
@@ -1643,11 +1917,11 @@ def main():
     log(f'  shadow: {traced7} traced rays')
     del plain7, k7, cam7, shadow7, bounce7
     cl_img, launches['intersect_clusters'], _ = render_checked(
-        'cluster route', cl_scene, cl_meta, TPL.intersect_clusters)
+        'cluster route', cl_scene, cl_meta, TPL.intersect_clusters, RATE_SPP)
     del cl_scene
     st_scene, st_meta = synth.city_scene(**MID, accel='stream', device=dev)
     st_img, _, _ = render_checked('streamed', st_scene, st_meta,
-                                  TDD.intersect_march)
+                                  TDD.intersect_march, RATE_SPP)
     same_image('cluster route vs streamed', cl_img, st_img)
     del st_scene, cl_img, st_img
 
@@ -3193,8 +3467,16 @@ def main():
     log(f'  phase 18: {time.perf_counter() - t18:.1f} s')
 
     # ---- 19. differentiable rendering and the camera plugin ---------------
-    rec19 = phase19(dev, (scene, meta), gold_box, gold_city, counters,
-                    zero_counts, golden_size)
+    rec19, dr_box = phase19(dev, (scene, meta), gold_box, gold_city,
+                            counters, zero_counts, golden_size)
+    # ---- 20. data parallelism, the ray count, the two-level gradient -------
+    rec20 = phase20(dev, (scene, meta), city_img, city4, dr_box, counters,
+                    zero_counts, first_bounce_queries)
+    del dr_box
+    for k_, v_ in rec20['launches'].items():
+        launches[{'intersect_stream_tlas': 'intersect_tlas',
+                  'intersect_two_level': 'intersect_tlas_motion'}.get(
+                      k_, k_)] += v_
 
     csrc = 'hydracore3_torch/csrc/'
     src = {'intersect_stream': csrc + 'traverse_wide.cuh',
@@ -3257,6 +3539,19 @@ def main():
                 plugin=rec19['plugin']['box'])
         if k['name'] in ('intersect_stream', 'intersect_march'):
             k['plugin_city'] = rec19['plugin']['bench city']
+        if k['name'] in ('intersect_stream', 'intersect_march'):
+            k['data_parallel_city'] = rec20['b']
+            k['count_rays_pass'] = rec20['d']
+        if k['name'] == 'intersect_clusters':
+            k['data_parallel_dr'] = rec20['c']
+        if k['name'] == 'intersect_tlas':
+            k['two_level_grad'] = {
+                key: v for key, v in rec20['e'].items()
+                if key.startswith('K4,')}
+        if k['name'] == 'intersect_tlas_motion':
+            k['two_level_grad'] = {
+                key: v for key, v in rec20['e'].items()
+                if key.startswith('K4m')}
         if k['name'] == 'intersect_tlas_motion':
             k.update(registers=rec17['registers'],
                      motion_box=rec17['motion_box'],

@@ -47,7 +47,10 @@ rendering on ``torch.autograd`` (``models/dr.py``: texel and material-row
 gradients through the batched route, the Whitted gradient, the Adam
 loops; the hit's gradient of the ray in ``accel/hit_grad.py``) and the
 camera plugin (``camera_plugin.py``: ray generators and sensors outside
-the renderer, traced from their rays).  What a scene holds
+the renderer, traced from their rays), and data parallelism over
+``torch.distributed`` (``parallel/mesh.py``: one process per card, each
+rendering a stripe of pixels, DR gradients averaged over the ranks).
+What a scene holds
 beyond that is refused with ``NotImplementedError``: by the loader, naming
 its ``ROADMAP.md`` item, or by the render path.
 

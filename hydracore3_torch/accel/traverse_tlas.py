@@ -36,7 +36,7 @@ from . import wide_bvh as WB
 from .traverse_stream import TBK, T_MAX_CAP
 
 _TABLES = ('tlas_f', 'tlas_i', 'nodes_f', 'nodes_i', 'inst_f', 'inst_i',
-           'woop', 'mesh_clusters')
+           'woop', 'mesh_clusters', 'rows')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +51,9 @@ class TlasPack:
     inst_i: object         # [I, 4] i32: (mesh's first node, mesh id, 0, 0)
     woop: object           # [C * TBK, 12] f32: Woop rows, all meshes
     mesh_clusters: object  # [G, 2] i32: (first cluster slot, count) per mesh
+    rows: object           # [C * TBK, 12] f32: the Woop rows' triangles as
+    #                        object-space (v0, e1, e2, pad) rows, padding 0
+    #                        (the hit's gradient, accel/hit_grad.py)
     # what the CUDA kernel walks, derived from the tables above: wide nodes,
     # 4-triangle leaves (wide_bvh.pack_wide_tlas)
     wide: WB.WidePack = None
@@ -74,8 +77,9 @@ def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
     (inverse-transpose matrices for normals), ``order_padded [C * TBK]``
     (padded slot -> the mesh's ORIGINAL primitive id, -1 for padding),
     ``tri_mesh [C * TBK]`` (mesh id per padded slot, -1 for padding),
-    ``node_base [G]``, ``cluster_base [G]`` and ``wide``, the card-side
-    ``WidePack`` derived from the rest."""
+    ``node_base [G]``, ``cluster_base [G]``, ``rows [C * TBK, 12]`` (each
+    padded slot's object-space (v0, e1, e2) row, zeros for padding) and
+    ``wide``, the card-side ``WidePack`` derived from the rest."""
     nodes_f_l, nodes_i_l, woop_l, order_l, mesh_l = [], [], [], [], []
     fine_l = []
     node_base, cluster_base, mesh_bounds = [], [], []
@@ -139,6 +143,9 @@ def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
     leaf = tl.tri_count > 0
     tlas_i[leaf, 1] = tl.order[tl.tri_offset[leaf]]
 
+    rows = np.zeros((cbase * TBK, 12), np.float32)
+    for v0, e1, e2, slots in fine_l:
+        rows[slots, 0:3], rows[slots, 3:6], rows[slots, 6:9] = v0, e1, e2
     cluster_base = np.array(cluster_base, np.int32)
     counts = np.diff(np.append(cluster_base, cbase)).astype(np.int32)
     pk = dict(
@@ -147,7 +154,7 @@ def pack_stream_tlas(mesh_tris: list, instances: list) -> dict:
         inst_f=np.array(inst_f, np.float32),
         inst_i=np.array(inst_i, np.int32),
         inst_nm=np.array(inst_nm, np.float32),
-        woop=np.concatenate(woop_l),
+        woop=np.concatenate(woop_l), rows=rows,
         mesh_clusters=np.stack([cluster_base, counts], axis=1),
         order_padded=np.concatenate(order_l),
         tri_mesh=np.concatenate(mesh_l),

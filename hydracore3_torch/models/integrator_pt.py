@@ -453,13 +453,12 @@ def kernel_ray_trace(scene, meta, state: RayState, bounce: int) -> RayState:
     live = ~_is_dead(state.flags)
     t_min = torch.zeros_like(state.mis_pdf)
     t_max = torch.where(live, _F32MAX, 0.0)
-    if (meta.use_stream_tlas or meta.use_two_level) and LM.tracks_grad(
-            state.ray_pos, state.ray_dir):
-        raise HG.two_level_refused('kernel_ray_trace')
+    # on every class (t, u, v) carry the gradient of the ray where
+    # autograd tracks it (accel/hit_grad.py)
     if meta.use_stream_tlas:
         # object-space shade rows; normal and tangent through the
         # instance's normal matrix (integrator_pt.cpp:263-292)
-        pt, ptri, pu, pv, pinst = TT.intersect_stream_tlas(
+        pt, ptri, pu, pv, pinst = HG.tlas_with_grad(
             scene.tt, state.ray_pos, state.ray_dir, t_min, t_max)
         found = ptri >= 0
         shade = scene.tt_shade[torch.clamp(ptri, min=0)]
@@ -475,8 +474,8 @@ def kernel_ray_trace(scene, meta, state: RayState, bounce: int) -> RayState:
         # normal and tangent through the normal matrices of both ends of
         # the shutter, lerped by time (integrator_pt.cpp:285-292)
         tl, time = scene.two_level, ray_time(state)
-        pt, ptri, pinst, pu, pv = TL2.intersect_two_level(
-            tl, state.ray_pos, state.ray_dir, t_min, t_max, time=time)
+        pt, ptri, pinst, pu, pv = HG.two_level_with_grad(
+            tl, state.ray_pos, state.ray_dir, t_min, t_max, time)
         found = ptri >= 0
         shade = scene.tl_shade[torch.clamp(ptri, min=0)]
         norm_o, tang_o, hit_uv = _lerp_shade(shade, pu, pv)
@@ -495,7 +494,6 @@ def kernel_ray_trace(scene, meta, state: RayState, bounce: int) -> RayState:
         mid = _remap_material_id(scene, shade[:, 24].to(torch.int64), pinst)
         hit_inst = pinst
     else:
-        # (t, u, v) carry the gradient of the ray where autograd tracks it
         pt, ptri, pu, pv = soup_nearest_hit(scene, state.ray_pos,
                                             state.ray_dir, t_min, t_max,
                                             meta.use_stream)
@@ -619,7 +617,8 @@ def shadow_occluded(scene, rays: ShadowRays):
 
 def kernel_sample_light_source(scene, meta, state: RayState, ctx,
                                integrator_type: int = INTEGRATOR_MIS_PT,
-                               render_layer: int = FB_COLOR, qmc_ctx=None):
+                               render_layer: int = FB_COLOR, qmc_ctx=None,
+                               return_count: bool = False):
     """kernel_SampleLightSource (integrator_pt.cpp:350-424); MIS weights
     only for the MIS integrator.  ``ctx``: the bounce's shading context
     (None in a scene with a blend).  The ``direct`` layer keeps the light
@@ -627,7 +626,9 @@ def kernel_sample_light_source(scene, meta, state: RayState, ctx,
     layer the rest.  ``qmc_ctx``: the QMC or MLT randoms of this bounce
     (``sample_shadow_rays``).
 
-    Returns (shade_color [N, 4], new rng state)."""
+    Returns (shade_color [N, 4], new rng state); with ``return_count``
+    also the number of shadow rays it traces (live lanes in the light's
+    illumination, a scalar int64 tensor)."""
     rng_state, light_id, lsam, rays = sample_shadow_rays(scene, meta, state,
                                                          qmc_ctx)
     shadow_pos, shadow_dir = rays.pos, rays.dir
@@ -664,7 +665,10 @@ def kernel_sample_light_source(scene, meta, state: RayState, ctx,
     shade = (light_color * bsdf['val']
              / torch.clamp(lgt_pdf_w, min=1e-30)[:, None]
              * (cos_out * mis)[:, None])
-    return torch.where(need_shade[:, None], shade, 0.0), rng_state
+    shade = torch.where(need_shade[:, None], shade, 0.0)
+    if return_count:
+        return shade, rng_state, rays.need_trace.sum()
+    return shade, rng_state
 
 
 def kernel_next_bounce(scene, meta, state: RayState, bounce: int,
@@ -863,6 +867,36 @@ def init_state_from_input_rays(meta, rng_state, ray_pos, ray_dir,
         hit_uv=zeros(2), hit_dist=zeros(),
         hit_inst=torch.zeros(N, dtype=torch.int64, device=dev),
         wavelengths=waves4, time=time if meta.has_motion else None)
+
+
+def count_rays_pass(scene, meta, rng_state, pixel_ids,
+                    integrator_type: int = INTEGRATOR_MIS_PT):
+    """The rays one pass traces (JAX ``count_rays_pass``, the counter
+    behind the bench's Mrays/s): ``n_nearest``, the live lanes before each
+    bounce's nearest-hit trace, and ``n_shadow``, the shadow rays
+    ``kernel_sample_light_source`` traces (live lanes in the light's
+    illumination); the naive integrator runs one bounce more and no
+    shadow ray.  The pass runs as the JAX one does: unsorted, through the
+    scene class's kernels.  Returns (n_nearest, n_shadow) as ints."""
+    state = kernel_init_eye_ray(scene, meta, rng_state, pixel_ids)
+    naive = integrator_type == INTEGRATOR_STUPID_PT
+    n_near = n_shadow = 0
+    for b in range(meta.trace_depth + int(naive)):
+        n_near += (~_is_dead(state.flags)).sum()
+        state = kernel_ray_trace(scene, meta, state, b)
+        ctx = None if meta.has_blend else MAT.make_shading_ctx(
+            scene, meta, _extract_mat_id(state.flags), state.hit_norm,
+            state.hit_tang, state.hit_uv)
+        if naive:
+            shade = torch.zeros_like(state.accum_color)
+        else:
+            shade, rng2, n_tr = kernel_sample_light_source(
+                scene, meta, state, ctx, integrator_type, return_count=True)
+            n_shadow += n_tr
+            state = state._replace(rng=rng2)
+        state = kernel_next_bounce(scene, meta, state, b, shade, ctx,
+                                   integrator_type)
+    return int(n_near), int(n_shadow)
 
 
 def trace_pass(scene, meta, rng_state, pixel_ids,

@@ -84,10 +84,8 @@ def intersect(scene, meta, ray_pos, ray_dir, t_max) -> Hit:
     _soup_query(scene, meta)
     t_min = torch.zeros_like(t_max)
     if meta.use_stream_tlas:
-        if LM.tracks_grad(ray_pos, ray_dir):
-            raise HG.two_level_refused('integrator_rt.intersect')
-        t, tri, u, v, inst = TT.intersect_stream_tlas(scene.tt, ray_pos,
-                                                      ray_dir, t_min, t_max)
+        t, tri, u, v, inst = HG.tlas_with_grad(scene.tt, ray_pos, ray_dir,
+                                               t_min, t_max)
         found = tri >= 0
         slot = torch.clamp(tri, min=0)
         geom = torch.where(found, scene.tt_geom[slot], -1)

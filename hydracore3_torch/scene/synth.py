@@ -1,10 +1,12 @@
 """The port's in-repo scenes, built in numpy: the cities and the box.
 
 The city is the counterpart of ``hydracore3_tpu/scene/synth.py``: the same
-geometry, procedural textures, lights and camera from the same numpy RNG
-draws in the same order, emitted as an in-memory ``SceneDesc`` (with the
-JAX package's names, so that ``api.write_library`` writes the JAX
-package's files byte for byte) and built by ``scene.build.build_scene``.
+geometry, materials (procedural textures and a sky with ``textured``, the
+bench city; plain colours without, JAX's default), lights and camera
+from the same numpy RNG draws in the same order, emitted as an in-memory
+``SceneDesc`` (with the JAX package's names, so that
+``api.write_library`` writes the JAX package's files byte for byte) and
+built by ``scene.build.build_scene``.
 At the bench size (48 x 48 blocks, subdiv 3, 64 x 64 ground) the city has
 215,554 triangles: 48^2 buildings of 90, an 8192-triangle ground and the
 area light's 2.
@@ -114,33 +116,47 @@ def build_city(n_blocks: int = 48, subdiv: int = 3, seed: int = 7,
                width: int = 1024, height: int = 1024, depth: int = 5,
                ground_subdiv: int = 64, textured: bool = False
                ) -> B.SceneDesc:
-    """The city description, deterministic in (n_blocks, subdiv, seed)."""
-    if not textured:
-        raise NotImplementedError('the untextured city is not ported; use '
-                                  'textured=True')
+    """The city description, deterministic in (n_blocks, subdiv, seed).
+    ``textured`` gives the facades and the asphalt procedural textures and
+    adds a lat-long sky; the untextured city (the JAX package's default)
+    has no texture and no environment, a grey ground and six wall
+    colours."""
     rng = np.random.default_rng(seed)
     sd = B.SceneDesc(width=width, height=height, trace_depth=depth, spp=64)
-    t_ground = sd.add_texture(_asphalt_texture(rng), 'asphalt')
-    t_walls = [sd.add_texture(_facade_texture(rng, c), f'facade{i}')
-               for i, c in enumerate([(0.65, 0.55, 0.45), (0.55, 0.60, 0.70),
-                                      (0.70, 0.45, 0.40), (0.75, 0.70, 0.60)])]
-    # facade repeats every 4 world units, asphalt every 8 (street pitch)
-    fm = (0.25, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0)
-    gm = (0.125, 0.0, 0.0, 0.0, 0.0, 0.125, 0.0, 0.0)
-    sd.materials.append(B.MaterialDesc(name='ground',
-                                       diffuse_color=(1.0, 1.0, 1.0),
-                                       diffuse_tex_id=t_ground,
-                                       diffuse_tex_matrix=gm))
-    m_walls = []
-    for i, t in enumerate(t_walls):
-        m_walls.append(len(sd.materials))
-        sd.materials.append(B.MaterialDesc(name=f'wall{i}',
+    if textured:
+        t_ground = sd.add_texture(_asphalt_texture(rng), 'asphalt')
+        t_walls = [sd.add_texture(_facade_texture(rng, c), f'facade{i}')
+                   for i, c in enumerate([(0.65, 0.55, 0.45),
+                                          (0.55, 0.60, 0.70),
+                                          (0.70, 0.45, 0.40),
+                                          (0.75, 0.70, 0.60)])]
+        # facade repeats every 4 world units, asphalt every 8 (street pitch)
+        fm = (0.25, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0)
+        gm = (0.125, 0.0, 0.0, 0.0, 0.0, 0.125, 0.0, 0.0)
+        sd.materials.append(B.MaterialDesc(name='ground',
                                            diffuse_color=(1.0, 1.0, 1.0),
-                                           diffuse_tex_id=t,
-                                           diffuse_tex_matrix=fm))
-    t_env = sd.add_texture(_sky_env_map(), 'sky')
-    sd.env = B.EnvLightDesc(color=(1.0, 1.0, 1.0), multiplier=1.0,
-                            tex_id=t_env)
+                                           diffuse_tex_id=t_ground,
+                                           diffuse_tex_matrix=gm))
+        walls = [B.MaterialDesc(name=f'wall{i}', diffuse_color=(1.0, 1.0,
+                                                                1.0),
+                                diffuse_tex_id=t, diffuse_tex_matrix=fm)
+                 for i, t in enumerate(t_walls)]
+    else:
+        sd.materials.append(B.MaterialDesc(name='ground',
+                                           diffuse_color=(0.30, 0.30, 0.32)))
+        walls = [B.MaterialDesc(name=f'wall{i}', diffuse_color=c)
+                 for i, c in enumerate([(0.65, 0.55, 0.45),
+                                        (0.55, 0.60, 0.70),
+                                        (0.70, 0.45, 0.40),
+                                        (0.50, 0.65, 0.50),
+                                        (0.75, 0.70, 0.60),
+                                        (0.45, 0.50, 0.60)])]
+    m_walls = list(range(len(sd.materials), len(sd.materials) + len(walls)))
+    sd.materials += walls
+    if textured:
+        t_env = sd.add_texture(_sky_env_map(), 'sky')
+        sd.env = B.EnvLightDesc(color=(1.0, 1.0, 1.0), multiplier=1.0,
+                                tex_id=t_env)
 
     # blocks on an 8-unit pitch, streets between
     pitch = 8.0

@@ -9,7 +9,8 @@ gradients and the hit's ``Function`` against the JAX package's.
   under autograd) on K5's camera and first-bounce queries of the zoo box,
   and on the small city streamed (against the dense Moller-Trumbore plain
   version over the streamed soup's rows, on the lanes whose triangle the
-  march agrees on); a ray autograd tracks raises on the two-level class;
+  march agrees on); on the two-level class a ray autograd tracks takes
+  the hit's gradient too (``test_torch_two_level_grad`` holds it);
 * ``loss_and_grad`` (``mispt``, ``naivept``) and
   ``whitted_loss_and_grad`` on the DR box (``zoo_scenes.write_dr_box``,
   depth 6, drmain's trainable back-wall slot) at 16 x 12 from the same
@@ -218,19 +219,30 @@ def test_hit_without_autograd_runs_the_query_itself():
 
 
 def test_two_level_raises_where_a_ray_needs_the_hit_gradient():
+    """Nothing raises any more where a ray that autograd tracks meets the
+    two-level class: ``kernel_ray_trace`` and ``integrator_rt.intersect``
+    return the untracked ray's hit and carry a finite gradient
+    (``tests/test_torch_two_level_grad.py`` holds it against the plain
+    walks, JAX and central differences)."""
     ts, tm = tsynth.instanced_city_scene(**ICITY_KW, accel='stream_tlas',
                                          device='cpu')
     n = tm.width * tm.height
     st = TIPT.kernel_init_eye_ray(ts, tm, TRNG.gen_init(torch.arange(n)),
                                   torch.arange(n))
-    st = st._replace(ray_dir=st.ray_dir.clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match='item 6b'):
-        TIPT.kernel_ray_trace(ts, tm, st, 0)
-    with pytest.raises(NotImplementedError, match='item 6b'):
-        TRT.intersect(ts, tm, st.ray_pos, st.ray_dir,
-                      torch.full((n,), TLM.FLT_MAX))
-    TIPT.kernel_ray_trace(ts, tm, st._replace(ray_dir=st.ray_dir.detach()),
-                          0)
+    d = st.ray_dir.clone().requires_grad_()
+    out = TIPT.kernel_ray_trace(ts, tm, st._replace(ray_dir=d), 0)
+    ref = TIPT.kernel_ray_trace(ts, tm, st, 0)
+    assert torch.equal(out.hit_dist.detach(), ref.hit_dist)
+    assert torch.equal(out.flags, ref.flags)
+    g, = torch.autograd.grad(out.hit_dist.sum(), d)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    t_max = torch.full((n,), TLM.FLT_MAX)
+    hit = TRT.intersect(ts, tm, st.ray_pos, d, t_max)
+    assert torch.equal(hit.t.detach(), TRT.intersect(ts, tm, st.ray_pos,
+                                                     st.ray_dir, t_max).t)
+    g, = torch.autograd.grad(torch.where(hit.prim_id >= 0, hit.t, 0.0).sum(),
+                             d)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
 
 
 # ---- the DR module against JAX ---------------------------------------------

@@ -1567,3 +1567,142 @@ def test_dr_loss_and_grad_on_card_matches_cpu(cuda, tmp_path):
     assert abs(lg / lc - 1.0) <= 1e-4
     assert float(gc.abs().sum()) > 0
     assert float((gg - gc).norm() / gc.norm()) <= 1e-2
+
+
+# ---- the two-level hit's gradient and data parallelism ---------------------
+
+def _motion_instanced(seed=13):
+    """Three random meshes under ten instances, five of them moving (the
+    random scene of scripts/rehearse_motion_cpu.py), two coincident."""
+    from hydracore3_torch.accel import two_level as TL2
+    rng = np.random.default_rng(seed)
+
+    def mesh(n, scale):
+        return tuple(rng.uniform(-w, w, (n, 3)).astype(np.float32) * scale
+                     for w in (1.0, 0.3, 0.3))
+
+    def rot(a, t):
+        m = np.eye(4, dtype=np.float32)
+        c, s = np.cos(a), np.sin(a)
+        m[0, 0], m[0, 1], m[1, 0], m[1, 1] = c, -s, s, c
+        m[:3, 3] = t
+        return m
+
+    meshes = [mesh(40, 1.0), mesh(17, 0.5), mesh(64, 0.8)]
+    insts = [dict(geom_id=k % 3, m0=rot(rng.uniform(0, 3),
+                                        rng.uniform(-2.5, 2.5, 3)),
+                  m1=(rot(rng.uniform(0, 3), rng.uniform(-2.5, 2.5, 3))
+                      if k % 2 == 0 else None)) for k in range(9)]
+    insts.append(dict(geom_id=1, m0=insts[1]['m0'], m1=None))
+    return TL2.build_two_level(meshes, insts), rng
+
+
+@pytest.mark.parametrize('which', ['K4', 'K4m'])
+def test_two_level_backward_on_random_instanced_meshes(cuda, which):
+    """The two-level hit's ``Function`` (accel/hit_grad.py) on random rays
+    through random instanced meshes: on the card (K4 or K4m forward, at
+    random times for K4m) its hits equal the CPU's plain walk's and its
+    gradient with respect to the rays is finite and within 1e-4 of the
+    CPU's on >= 99.9% of the lanes, and of the plain walk's autograd
+    gradient (K4m's dense walk; for K4 the walk's Woop test at its hit)."""
+    from hydracore3_torch.accel import hit_grad as HG
+    from hydracore3_torch.accel import two_level as TL2
+    if which == 'K4':
+        pk, _ = _instanced(cuda)
+        rng = np.random.default_rng(21)
+        tables = TTT.tlas_pack(pk)
+        pos, d = random_rays(rng, 8192, box=10.0)
+        time = None
+    else:
+        tables, rng = _motion_instanced()
+        pos, _ = random_rays(rng, 8192, box=4.0)
+        # aimed at the instances' region
+        d = rng.uniform(-2.0, 2.0, pos.shape).astype(np.float32) - pos
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        time = torch.tensor(rng.uniform(0, 1, 8192), dtype=torch.float32)
+    n = pos.shape[0]
+    cot = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    out = {}
+    for dev in ('cpu', cuda):
+        tab = tables.to(dev)
+        p = torch.from_numpy(pos).to(dev).requires_grad_()
+        q = torch.from_numpy(d).to(dev).requires_grad_()
+        t_min = torch.zeros(n, device=dev)
+        t_max = torch.full((n,), IPT_FLT_MAX, device=dev)
+        if which == 'K4':
+            before = TTT.intersect_stream_tlas.launches
+            t, tri, u, v, inst = HG.tlas_with_grad(tab, p, q, t_min, t_max)
+            launched = TTT.intersect_stream_tlas.launches - before
+        else:
+            tm_ = time.to(dev)
+            before = TL2.intersect_two_level.launches
+            t, tri, inst, u, v = HG.two_level_with_grad(tab, p, q, t_min,
+                                                        t_max, tm_)
+            launched = TL2.intersect_two_level.launches - before
+        assert launched == (1 if dev is cuda else 0)
+        c = cot.to(dev)
+        loss = sum((torch.where(tri >= 0, x, 0.0) * k_).sum()
+                   for x, k_ in zip((t, u, v), c))
+        gp, gq = torch.autograd.grad(loss, (p, q))
+        out[str(dev)] = [x.detach().cpu() for x in (tri, inst, gp, gq)]
+        if dev == 'cpu':
+            # the plain walk's autograd gradient
+            pp = torch.from_numpy(pos).requires_grad_()
+            qq = torch.from_numpy(d).requires_grad_()
+            if which == 'K4':
+                with torch.no_grad():
+                    _, ptri, _, _, pinst = TTT.intersect_tlas_plain(
+                        tab, pp, qq, t_min, torch.clamp(
+                            t_max, max=TTS.T_MAX_CAP))
+                op, od = TTT.to_object_space(
+                    tab.inst_f[pinst.clamp(min=0)].T, pp, qq)
+                pt, pu, pv, _ = TWB._woop(tab.woop[ptri.clamp(min=0)], op,
+                                          od)
+            else:
+                pt, ptri, pinst, pu, pv = TL2.intersect_two_level_plain(
+                    tab, pp, qq, t_min, t_max, time)
+            loss = sum((torch.where(ptri >= 0, x, 0.0) * k_).sum()
+                       for x, k_ in zip((pt, pu, pv), cot))
+            out['plain'] = [ptri, pinst, *torch.autograd.grad(loss,
+                                                              (pp, qq))]
+    hits = out['cpu'][0] >= 0
+    assert int(hits.sum()) > n // 10
+    for other in (str(cuda), 'plain'):
+        b = out[other]
+        both = hits & (b[0] >= 0)
+        same = both & (out['cpu'][0] == b[0]) & (out['cpu'][1] == b[1])
+        assert float(same.float().sum() / hits.float().sum()) >= 0.999
+        for x, y in zip(out['cpu'][2:], b[2:]):
+            assert bool(torch.isfinite(y[same]).all())
+            close = torch.isclose(x[same], y[same], rtol=1e-4,
+                                  atol=1e-4).all(-1)
+            assert float(close.float().mean()) >= 0.999, other
+
+
+def test_two_gloo_ranks_on_one_card_render_the_one_process_image(cuda,
+                                                                 tmp_path):
+    """``parallel/mesh.render_sharded`` of the textured box (64 x 48, and
+    63 x 47, whose pixels pad to a multiple of two) by two gloo processes
+    that share the card (NCCL cannot put two ranks on one card), each
+    stripe through K5: the image equals the one-process render on the
+    card bit for bit."""
+    import torch_dist_worker as W
+    from hydracore3_torch import api
+    from hydracore3_torch.parallel import mesh as M
+    from hydracore3_torch.scene import build as B
+    from hydracore3_torch.scene import synth
+    sizes = ((64, 48), (63, 47))
+    lib = api.write_library(synth.build_box(64, 48, 4, textured=True),
+                            str(tmp_path / 'box'))
+    ranks = W.run_ranks(dict(mode='render', library=lib, device='cuda:0',
+                             backend='gloo', sizes=sizes, spp=2), 2,
+                        str(tmp_path))
+    mesh = M.make_mesh(device=cuda)
+    for w, h in sizes:
+        sc, mt = B.load_scene(lib, width=w, height=h, device=cuda)
+        before = TTP.intersect_clusters.launches
+        img = M.render_sharded(mesh, sc, mt, spp=2)
+        assert TTP.intersect_clusters.launches > before
+        assert np.isfinite(img).all() and img[..., :3].max() > 0
+        for r in ranks:
+            np.testing.assert_array_equal(r[f'img_{w}x{h}'], img)

@@ -23,8 +23,10 @@ from hydracore3_tpu.ops import rng as JRNG
 from hydracore3_torch import render as TRENDER
 from hydracore3_torch.models import integrator_pt as TIPT
 from hydracore3_torch.ops import rng as TRNG
+from hydracore3_torch.scene import build as TB
 from hydracore3_torch.scene import synth as tsynth
 from test_torch_scene import CITY_KW, jax_city
+import zoo_scenes
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -93,9 +95,18 @@ def test_render_psnr_vs_jax(scenes):
     assert psnr >= 45.0, f'PSNR {psnr:.2f} dB'
 
 
-def test_unported_options_raise(scenes):
-    with pytest.raises(NotImplementedError):
-        tsynth.city_scene(**dict(CITY_KW, textured=False), device='cpu')
+def test_unported_options_raise(scenes, tmp_path):
+    """The untextured city builds now (``test_torch_count_city`` holds it
+    against JAX); what stays refused is a moving instance under a soup
+    class (ROADMAP.md section 1, item 3b)."""
+    scene, meta = tsynth.city_scene(**dict(CITY_KW, textured=False),
+                                    device='cpu')
+    assert meta.use_stream and not meta.has_env_map
+    assert scene.textures.width.numel() <= 1
+    lib = zoo_scenes.write_motion_box(str(tmp_path), 16, 12, 2)
+    for accel in ('stream', 'stream_tlas'):
+        with pytest.raises(NotImplementedError, match='3b'):
+            TB.load_scene(lib, accel=accel, device='cpu')
 
 
 def test_direct_layer_renders(scenes):
