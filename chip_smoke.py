@@ -535,6 +535,20 @@ def shade_ops(counts, naive=False, spectral=False):
     return ops
 
 
+def layout_line(attrs):
+    """K1's launch at one pack (``megakernel.kernel_attrs(lib, pk)``): per
+    entry point its pool (or one lane a thread), its layout (geometry and
+    walk stacks on chip or in device memory), shared bytes a block, blocks
+    an SM, registers and local bytes."""
+    def one(k, a):
+        pool = (f'pool {a["pool"]} lanes' if a['pool']
+                else 'one lane a thread')
+        return (f'{k} {pool}, layout {a["layout"]}, {a["shared_bytes"]} '
+                f'shared B a block, {a["blocks_per_sm"]} blocks an SM, '
+                f'{a["registers"]} registers, {a["local_bytes"]} local B')
+    return '; '.join(one(k, a) for k, a in attrs.items())
+
+
 def streamed_launched(n, integrator):
     """A streamed render launched K3 for its nearest hits and, unless it is
     naive (no shadow rays; K2 then runs only for lanes the march leaves),
@@ -1834,6 +1848,7 @@ def main():
         if mt.use_stream or mt.use_pallas or mt.use_stream_tlas \
                 or not MK.supported(sc, mt):
             raise RuntimeError(f'{tag}: accel=auto did not route to K1')
+        log(f'  K1 at this pack: {layout_line(MK.kernel_attrs(pk=pk))}')
         m = n if n_cmp is None else n_cmp
         xs, ss = xy[:, :m].contiguous(), su[:, :m].contiguous()
         out = {}
@@ -2381,9 +2396,10 @@ def main():
     for name in ZOO_INT:
         itype = MK.INTEGRATOR_BY_NAME[name]
         var = MK.variant_of(zpk, itype)
-        attrs = MK.kernel_attrs(MK.kernel_library(var))
+        attrs = MK.kernel_attrs(MK.kernel_library(var), zpk)
         rec = dict(variant=list(var), registers={
             k: (a['registers'], a['local_bytes']) for k, a in attrs.items()})
+        log(f'  {name}, K1 at this pack: {layout_line(attrs)}')
         # every lane of a full frame against the plain version
         k_f = MK.sample_pass(zpk, zxy, zsu, zdepth, itype)
         p_f, p_ms = timed(lambda: MK.sample_pass_plain(zpk, zxy, zsu, zdepth,
@@ -2789,9 +2805,10 @@ def main():
     for name in ZOO_INT:
         itype = MK.INTEGRATOR_BY_NAME[name]
         var = MK.variant_of(spk, itype)
-        attrs = MK.kernel_attrs(MK.kernel_library(var))
+        attrs = MK.kernel_attrs(MK.kernel_library(var), spk)
         rec = dict(variant=list(var), registers={
             k: (a['registers'], a['local_bytes']) for k, a in attrs.items()})
+        log(f'  {name}, K1 at this pack: {layout_line(attrs)}')
         k_f = MK.sample_pass(spk, sxy, ssu, sdepth, itype)
         p_f, p_ms = timed(lambda: MK.sample_pass_plain(spk, sxy, ssu, sdepth,
                                                        itype))

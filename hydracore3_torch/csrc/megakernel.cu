@@ -3,8 +3,8 @@
 // Replaces the Pallas megakernel of hydracore3_tpu/models/megakernel.py:
 // _build_kernels (whole_kernel and the make_kernel per-bounce chain) and
 // _build_regen_kernels (make_rfirst, make_rmid).  Two entry points share the
-// __device__ stage functions below, one lane per thread, 128 threads per
-// block:
+// __device__ stage functions below, 128 threads per block, each thread
+// running the lanes a phase lists for it (below, "What bounds it"):
 //
 //  * mega_sample_kernel: the fixed chain.  A whole sample per lane: camera
 //    ray, `depth` x (nearest hit, texture tap, NEE with a shadow any-hit,
@@ -14,8 +14,9 @@
 //  * mega_regen_kernel: `k` persistent-lane iterations per launch (rfirst,
 //    then rmid): a lane whose path dies flushes the sample into its own
 //    accumulator and restarts its pixel's next sample at once.  Lane state
-//    lives in registers and goes to global memory ([30, N] f32 and
-//    [5, N] int64, component-major so loads coalesce) between launches.
+//    lives in shared memory during a launch and goes to global memory
+//    ([30, N] f32 and [5, N] int64, component-major so loads coalesce)
+//    between launches.
 //
 // One library holds one variant, chosen at build time as the JAX package
 // builds one kernel per (integrator, present material types, env tap):
@@ -50,9 +51,9 @@
 // on every bounce, <= 4,096 of them.  The kernel walks instead the pack's
 // wide BVH (accel/wide_bvh.py, models/megakernel.wide_table): 128-byte
 // nodes of 4 children's boxes over leaves of at most 4 of the pack's Woop
-// rows, near-first with a per-lane stack of MEGA_STACK entries in local
-// memory; the leaf test is the brute trace's own woop(), so t, u and v are
-// its bits.  Ties are settled by comparison (the lower contract index wins
+// rows, near-first with a per-lane stack of at most MEGA_STACK entries;
+// the leaf test is the brute trace's own woop(), so t, u and v are its
+// bits.  Ties are settled by comparison (the lower contract index wins
 // among equal t), boxes are entered and stack entries kept at t == best,
 // and any-hit returns at the first valid triangle, so the walk returns the
 // brute trace's hit whenever it reaches the winner's leaf; the pack widens
@@ -61,22 +62,64 @@
 // 16; on the box with its walls cut into 20 x 20 grids (4,006 triangles),
 // ~4 instead of 4,096.
 //
-// What bounds it: per-lane arithmetic and divergence.  The tables (nodes,
-// rows, shade rows, material, light and texture-slot rows, consts) are a
-// few KB to a few hundred KB and stay in L1/L2; the per-lane memory traffic
-// is the lane state in and out.  A shade (texture tap, NEE with its light
-// sample and material eval, the material sample) is ~500-1,150 separate
-// operations with no FMA (chip_smoke.py SHADE_OPS, per material kind), so
-// the attainable rate is half the card's f32 peak.  Lanes of a
-// warp die at different bounces (the fixed chain idles them to the end;
-// regen refills them).  Material and light rows are padded to whole float4s
-// and read as float4s, and a lane whose hit is a light draws NEE's random
-// numbers and skips the rest of NEE, whose result its bounce discards.  No
-// shared memory.  Registers and local bytes are reported by hc3_mega_attrs
-// (chip_smoke.py prints them).
+// What bounds it.  A shade (texture tap, NEE with its light sample and
+// material eval, the material sample) is ~500-1,150 separate operations
+// with no FMA (chip_smoke.py SHADE_OPS, per material kind), and a trace
+// ~20-40 box and Woop tests: scalar f32 per lane, so the attainable rate
+// is half the card's f32 peak, and the per-lane memory traffic is the lane
+// state in and out.  There is no matrix product: wgmma and the tensor
+// cores have nothing to do, and thread block clusters nothing to share.
+// What keeps K1 above that bound is its divergence and its latency:
+//
+//  * Lanes regrouped by stage and material (the core).  Blocks are
+//    persistent (as many as the card holds at once), each owns a
+//    contiguous range of lanes and works through it in pools of
+//    SAMPLE_POOL / REGEN_POOL lanes whose state sits in shared memory (the
+//    regen state's rows, component-major).  A regen iteration runs as
+//    phases between barriers: the live lanes are listed by the material
+//    kind of their hit (warp votes and shared counters, build_lists) and
+//    shaded class by class, so a warp runs one material's branch; the dead
+//    lanes (dead at the last trace or by this shade) are listed and
+//    flushed and restarted together; then every lane traces.  In the fixed
+//    chain each bounce lists the live lanes to trace and then the hit ones
+//    by class, so a dead lane leaves the lists instead of idling to the
+//    end of the frame.  Which thread runs a lane changes, not what the
+//    lane computes: its arithmetic and its RNG draws are its own and in
+//    the plain version's order, and the regen launch still runs exactly `k`
+//    iterations a lane.  A variant with one material kind (the GLTF box's)
+//    has nothing to regroup by, and measured slower pooled: there a
+//    thread runs a lane's whole sample, or its `k` regen iterations, in
+//    registers, with the geometry and its stack where the layout puts them.
+//  * The layout, chosen by the pack's bytes (Layout::chip): a pack whose
+//    geometry (nodes, Woop rows, shade rows, index) fits GEOM_CHIP_BYTES
+//    and whose walk needs at most STACK_CHIP_MAX stack entries, as the
+//    small boxes' do (a few KB, 4-9 entries), has both on chip, copied
+//    once per block by cp.async (a node padded to 9 float4s and a shade
+//    row to 27 floats, so lanes at different nodes or triangles read
+//    different banks), and each thread's stack a slice of the block's in
+//    shared memory (interleaved, so a warp's pushes fall in consecutive
+//    words), where it was 256 local bytes a thread.  A larger pack (the
+//    tessellated box: ~700 KB, 19 entries) keeps its geometry in device
+//    memory, read through the read-only path, and a local stack, as
+//    before.  Each entry point is built for both (Ctx<true>, Ctx<false>),
+//    so the walk's strides and memory spaces are constants.
+//  * The small tables (consts, material, light and texture-slot rows),
+//    the texels and the spectra stay in device memory, read through the
+//    read-only path: copied on chip they measured slower.
+//  * Registers: SAMPLE_MIN_BLOCKS / REGEN_MIN_BLOCKS cap them; the dynamic
+//    shared memory a block takes is allowed in the C entry points, and the
+//    grid is what the occupancy calculator says the card holds.
+//    hc3_mega_attrs reports registers, local bytes and, per pack, shared
+//    bytes a block, blocks an SM and the layout (chip_smoke.py prints
+//    them).
+
+// Material and light rows are padded to whole float4s and read as float4s,
+// and a lane whose hit is a light draws NEE's random numbers and skips the
+// rest of NEE, whose result its bounce discards.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef HC3_INTEGRATOR
 #define HC3_INTEGRATOR 2
@@ -110,10 +153,28 @@ constexpr int MT_GLTF = 1, MT_DIFFUSE = 2, MT_CONDUCTOR = 4,
               MT_DIELECTRIC = 8, MT_GLASS = 16, MT_DISC = 32;
 
 constexpr int BLOCK = 128;
-// Blocks an SM must hold: caps the registers at 80 a thread (the walk and
-// the shading state together want 122-128, 4 blocks); measured faster on
-// the box and on the tessellated box than 4, 5, 7 or 8 (PERF.md, PR 6).
-constexpr int MIN_BLOCKS = 6;
+// the material kinds the variant shades (GLTF, diffuse, conductor,
+// dielectric, glass)
+constexpr int N_KINDS = (HC3_MTYPES & 1) + ((HC3_MTYPES >> 1) & 1) +
+                        ((HC3_MTYPES >> 2) & 1) + ((HC3_MTYPES >> 3) & 1) +
+                        ((HC3_MTYPES >> 4) & 1);
+// Per entry point, the lanes a block's pool holds in shared memory (a
+// multiple of BLOCK) and the blocks an SM must hold (capping the registers
+// at 65,536 / (BLOCK x MIN_BLOCKS) a thread), chosen by measurement
+// (scripts/k1_measure.py): with several material kinds big pools, so each
+// kind fills whole warps; a variant with one material kind takes no pool
+// (one lane a thread) and more blocks an SM.
+constexpr int SAMPLE_POOL = 4 * BLOCK;
+constexpr int SAMPLE_MIN_BLOCKS = N_KINDS > 1 ? 3 : 6;
+constexpr int REGEN_POOL = 4 * BLOCK;
+constexpr int REGEN_MIN_BLOCKS = N_KINDS > 1 ? 3 : 6;
+// The layout is on chip (the geometry: wide nodes, Woop rows, shade rows,
+// index; and the walk's stack) when the geometry takes at most
+// GEOM_CHIP_BYTES and the walk needs at most STACK_CHIP_MAX stack entries;
+// else the geometry stays in device memory and the stack is a local array
+// of MEGA_STACK entries a thread.
+constexpr int STACK_CHIP_MAX = 12;
+constexpr int GEOM_CHIP_BYTES = 16384;
 
 // Python-float constants rounded to f32, as torch and JAX round them
 #define F(x) static_cast<float>(x)
@@ -214,16 +275,24 @@ __device__ __forceinline__ float safe_sqrt(float x) {
 }
 __device__ __forceinline__ bool is_fin(float x) { return isfinite(x); }
 
+// The pack's tables as a kernel reads them.  The small ones (consts,
+// material, light and texture-slot rows) stay in device memory, read
+// through the read-only path (on chip they measured slower).  The
+// geometry (wide nodes, Woop rows, index, shade rows) sits in shared
+// memory when the layout is on chip (Ctx<true>: a node padded to 9 float4s
+// and a shade row to SHADE_CHIP_W floats, so lanes at different nodes or
+// triangles read different banks), else in device memory as the pack
+// holds it (Ctx<false>, read through __ldg).
 struct Tables {
-  const float4* __restrict__ nodes;   // [M, 8] float4: wide node records
-  const float4* __restrict__ rows;    // [T, 3] float4: Woop rows, fine order
-  const int* __restrict__ index;      // [T]: fine position -> contract index
-  const float* __restrict__ shade;    // [Tpad, 32]
-  const float4* __restrict__ mat;     // [128, MF_NROWS / 4]
-  const float4* __restrict__ light;   // [128, LF_NROWS / 4]
-  const float* __restrict__ tex;      // [128, TF_NROWS]
-  const float* __restrict__ consts;   // [56]
-  const float4* __restrict__ texels;  // [P] float4
+  const float4* nodes;                // a wide node's 8 float4s
+  const float4* rows;                 // [T, 3] float4: Woop rows
+  const int* index;                   // fine position -> contract index
+  const float* shade;                 // shade rows
+  const float4* mat;                  // [128, MF_NROWS / 4], device memory
+  const float4* light;                // [128, LF_NROWS / 4]
+  const float* tex;                   // [128, TF_NROWS]
+  const float* consts;                // [56], device memory
+  const float4* __restrict__ texels;  // [P] float4, device memory
   int n_texels, textured;
 #if HC3_SPECTRAL
   const float* __restrict__ spd;      // the spectra's 1 nm values
@@ -232,13 +301,18 @@ struct Tables {
 #endif
 };
 
+// the columns of a shade row the trace reads: 24 lerped, material, light;
+// on chip a row takes SHADE_CHIP_W floats (odd: conflict-free banks)
+constexpr int SHADE_COLS = 26;
+constexpr int SHADE_CHIP_W = 27;
+
 // What a lane did: Woop tests, child-box tests and shades by the hit's
 // material kind (GLTF, diffuse, conductor, dielectric, glass, light
 // source).  Only a build with -DHC3_COUNT counts: a second library of this
 // source, loaded by chip_smoke.py alone to measure a pass's operations (a
 // bound's numerator), with hc3_mega_counts_reset / hc3_mega_counts_read
-// besides the entry points.  In the shipped build the HC3_ macros expand to
-// nothing.
+// besides the entry points.  A thread sums the lanes it runs and flushes
+// once.  In the shipped build the HC3_ macros expand to nothing.
 #ifdef HC3_COUNT
 constexpr int N_COUNTS = 8;
 struct Counts {
@@ -246,30 +320,31 @@ struct Counts {
 };
 __device__ unsigned long long g_counts[N_COUNTS];
 #define HC3_COUNTS_FIELD Counts cnt;
-#define HC3_TICK(s, field) (++(s).cnt.field)
-#define HC3_TICK_SHADE(s, mtype) (++(s).cnt.shade[shade_kind(mtype)])
-#define HC3_FLUSH(s)                                                          \
+#define HC3_TICK(c, field) (++(c).cnt.field)
+#define HC3_TICK_SHADE(c, mtype) (++(c).cnt.shade[mat_class(mtype)])
+#define HC3_FLUSH(c)                                                          \
   do {                                                                        \
-    atomicAdd(g_counts + 0, (s).cnt.woop);                                    \
-    atomicAdd(g_counts + 1, (s).cnt.slab);                                    \
+    atomicAdd(g_counts + 0, (c).cnt.woop);                                    \
+    atomicAdd(g_counts + 1, (c).cnt.slab);                                    \
     for (int k_ = 0; k_ < 6; ++k_)                                            \
-      atomicAdd(g_counts + 2 + k_, (s).cnt.shade[k_]);                        \
+      atomicAdd(g_counts + 2 + k_, (c).cnt.shade[k_]);                        \
   } while (0)
-#define HC3_ZERO(s) ((s).cnt = Counts{})
+#else
+#define HC3_COUNTS_FIELD
+#define HC3_TICK(c, field)
+#define HC3_TICK_SHADE(c, mtype)
+#define HC3_FLUSH(c)
+#endif
 
-// the counters' index of a material kind
-__device__ __forceinline__ int shade_kind(float mtype) {
+// a material kind's class (the counters' index, and the groups a pool's
+// lanes are shaded in): GLTF, diffuse, conductor, dielectric, glass, then
+// light sources (and any other type)
+constexpr int N_CLASSES = 6;
+__device__ __forceinline__ int mat_class(float mtype) {
   return mtype == MAT_GLTF ? 0 : mtype == MAT_DIFFUSE ? 1
        : mtype == MAT_CONDUCTOR ? 2 : mtype == MAT_DIELECTRIC ? 3
        : mtype == MAT_GLASS ? 4 : 5;
 }
-#else
-#define HC3_COUNTS_FIELD
-#define HC3_TICK(s, field)
-#define HC3_TICK_SHADE(s, mtype)
-#define HC3_FLUSH(s)
-#define HC3_ZERO(s)
-#endif
 
 __device__ __forceinline__ float ld(const float* p, int i) {
   return __ldg(p + i);
@@ -314,7 +389,6 @@ struct St {
 #if HC3_SPECTRAL
   float lam[4];                       // the hero wavelengths
 #endif
-  HC3_COUNTS_FIELD
 };
 
 __device__ __forceinline__ bool dead(const St& s) {
@@ -383,11 +457,34 @@ struct __align__(8) Entry {
   float t;
 };
 
+// What a thread carries from lane to lane: its walk stack (entry j at
+// stack[j * stride]: with CHIP its slice of the block's stack in shared
+// memory, stride BLOCK so a warp's entries are consecutive, else its local
+// array) and, in the counting build, its counts; and the geometry's layout
+// the walk reads (CHIP: in shared memory, padded; else the pack's own in
+// device memory, through the read-only path).
+template <bool CHIP>
+struct Ctx {
+  static constexpr int stride = CHIP ? BLOCK : 1;
+  static constexpr int node_f4 = CHIP ? 9 : 8;
+  static constexpr int shade_w = CHIP ? SHADE_CHIP_W : 32;
+  template <class T>
+  static __device__ __forceinline__ T ld(const T* p) {
+    if constexpr (CHIP)
+      return *p;
+    else
+      return __ldg(p);
+  }
+  Entry* stack;
+  HC3_COUNTS_FIELD
+};
+
 // The Woop test of the plain version's _trace_blocks, op for op (under
 // -fmad=false nothing is contracted), on one triangle's rows w[0..2]
-__device__ __forceinline__ void woop(const float4* __restrict__ w, V3 o, V3 d,
-                                     float& t, float& u, float& v) {
-  float4 a = __ldg(w), b = __ldg(w + 1), c = __ldg(w + 2);
+template <class C>
+__device__ __forceinline__ void woop(const float4* w, V3 o, V3 d, float& t,
+                                     float& u, float& v) {
+  float4 a = C::ld(w), b = C::ld(w + 1), c = C::ld(w + 2);
   float po_x = a.x * o.x + a.y * o.y + a.z * o.z + a.w * 1.0f;
   float pd_x = a.x * d.x + a.y * d.y + a.z * d.z + a.w * 0.0f;
   float po_y = b.x * o.x + b.y * o.y + b.z * o.z + b.w * 1.0f;
@@ -434,55 +531,56 @@ __device__ __forceinline__ float slab_entry(V3 o, V3 inv, float lx, float ly,
 // reached: ties go to the lower contract index by comparison, and boxes are
 // entered, and entries kept, at t == best (the pack widens every box by a
 // margin that covers the Woop test's rounding, models/megakernel.py).
-template <bool ANY_HIT>
-__device__ Hit trace(const Tables& tb, V3 o, V3 d, float tmax, St& s,
-                     Entry* __restrict__ stack) {
+template <bool ANY_HIT, class C>
+__device__ Hit trace(const Tables& tb, V3 o, V3 d, float tmax, C& cx) {
+  Entry* const stack = cx.stack;
+  constexpr int stride = C::stride;
   Hit h{tmax, 0.0f, 0.0f, -1};
   V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
   int sp = 0, cur = 0;
   while (true) {
     while (cur >= 0) {
-      const float4* nd = tb.nodes + 8 * cur;
-      float4 lx = __ldg(nd), ly = __ldg(nd + 1), lz = __ldg(nd + 2);
-      float4 hx = __ldg(nd + 3), hy = __ldg(nd + 4), hz = __ldg(nd + 5);
-      int4 c = __ldg(reinterpret_cast<const int4*>(nd) + 6);
+      const float4* nd = tb.nodes + C::node_f4 * cur;
+      float4 lx = C::ld(nd), ly = C::ld(nd + 1), lz = C::ld(nd + 2);
+      float4 hx = C::ld(nd + 3), hy = C::ld(nd + 4), hz = C::ld(nd + 5);
+      int4 c = C::ld(reinterpret_cast<const int4*>(nd) + 6);
       int c0 = c.x, c1 = c.y, c2 = c.z, c3 = c.w;
       float t0 = slab_entry(o, inv, lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, h.t);
       float t1 = slab_entry(o, inv, lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, h.t);
       float t2 = slab_entry(o, inv, lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, h.t);
       float t3 = slab_entry(o, inv, lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, h.t);
-      if (c0 == WIDE_EMPTY) t0 = INFINITY; else HC3_TICK(s, slab);
-      if (c1 == WIDE_EMPTY) t1 = INFINITY; else HC3_TICK(s, slab);
-      if (c2 == WIDE_EMPTY) t2 = INFINITY; else HC3_TICK(s, slab);
-      if (c3 == WIDE_EMPTY) t3 = INFINITY; else HC3_TICK(s, slab);
+      if (c0 == WIDE_EMPTY) t0 = INFINITY; else HC3_TICK(cx, slab);
+      if (c1 == WIDE_EMPTY) t1 = INFINITY; else HC3_TICK(cx, slab);
+      if (c2 == WIDE_EMPTY) t2 = INFINITY; else HC3_TICK(cx, slab);
+      if (c3 == WIDE_EMPTY) t3 = INFINITY; else HC3_TICK(cx, slab);
       // far to near, so the nearest waiting child is popped first (any-hit
       // takes the first occluder wherever it lies: unsorted measured faster)
       if (!ANY_HIT) {
         WIDE_CE(0, 1) WIDE_CE(2, 3) WIDE_CE(0, 2) WIDE_CE(1, 3) WIDE_CE(1, 2)
       }
-      if (t3 < INFINITY) stack[sp++] = Entry{c3, t3};
-      if (t2 < INFINITY) stack[sp++] = Entry{c2, t2};
-      if (t1 < INFINITY) stack[sp++] = Entry{c1, t1};
+      if (t3 < INFINITY) stack[stride * sp++] = Entry{c3, t3};
+      if (t2 < INFINITY) stack[stride * sp++] = Entry{c2, t2};
+      if (t1 < INFINITY) stack[stride * sp++] = Entry{c1, t1};
       cur = t0 < INFINITY ? c0 : WIDE_EMPTY;
     }
     if (cur != WIDE_EMPTY) {            // a leaf: count <= 4 rows from off
       int code = ~cur;
       int off = code >> 3, count = code & 7;
       for (int k = 0; k < count; ++k) {
-        HC3_TICK(s, woop);
+        HC3_TICK(cx, woop);
         float t, u, v;
-        woop(tb.rows + 3 * (off + k), o, d, t, u, v);
+        woop<C>(tb.rows + 3 * (off + k), o, d, t, u, v);
         if (!(u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
               t < tmax))
           continue;
         if (ANY_HIT) return Hit{0.0f, 0.0f, 0.0f, 0};
-        int tri = __ldg(tb.index + off + k);
+        int tri = C::ld(tb.index + off + k);
         if (t < h.t || (t == h.t && tri < h.tri)) h = Hit{t, u, v, tri};
       }
     }
     cur = WIDE_EMPTY;
     while (sp > 0) {
-      Entry e = stack[--sp];
+      Entry e = stack[stride * --sp];
       if (e.t <= h.t) {
         cur = e.ref;
         break;
@@ -495,24 +593,25 @@ __device__ Hit trace(const Tables& tb, V3 o, V3 d, float tmax, St& s,
 #undef WIDE_CE
 
 // kernel_RayTrace2: nearest hit, shade-row lerp, normal flip, flags
-__device__ void stage_trace(const Tables& tb, St& s, bool prim,
-                            Entry* __restrict__ stack) {
+template <class C>
+__device__ void stage_trace(const Tables& tb, St& s, bool prim, C& cx) {
   if (dead(s)) return;
-  Hit h = trace<false>(tb, s.o, s.d, FLT_MAX_F, s, stack);
+  Hit h = trace<false>(tb, s.o, s.d, FLT_MAX_F, cx);
   if (!(h.t < F(3.4e38 * 0.5))) {
     s.flags |= FLAG_IS_DEAD | FLAG_OUT_OF_SCENE |
                (prim ? FLAG_PRIME_RAY_MISS : 0u);
     return;
   }
-  const float* sr = tb.shade + 32 * h.tri;
+  const float* sr = tb.shade + C::shade_w * h.tri;
   float wa = 1.0f - h.u - h.v;
   float data[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    data[j] = wa * ld(sr, j) + h.u * ld(sr, 8 + j) + h.v * ld(sr, 16 + j);
+    data[j] = wa * C::ld(sr + j) + h.u * C::ld(sr + 8 + j) +
+              h.v * C::ld(sr + 16 + j);
   V3 n = normalize3({data[0], data[1], data[2]});
-  uint32_t mid = (uint32_t)(int)floorf(ld(sr, 24) + 0.5f);
-  float lgt = floorf(ld(sr, 25) + 0.5f);
+  uint32_t mid = (uint32_t)(int)floorf(C::ld(sr + 24) + 0.5f);
+  float lgt = floorf(C::ld(sr + 25) + 0.5f);
   float flip = dot3(s.d, n) > F(0.001) ? -1.0f : 1.0f;
   uint32_t flags = flip < 0.0f ? (s.flags | FLAG_HAS_INV_NORMAL)
                                : (s.flags & ~FLAG_HAS_INV_NORMAL);
@@ -538,8 +637,7 @@ struct Mat {
 
 // columns c0..c0+n of a row held as float4s, read as whole float4s
 template <int N>
-__device__ __forceinline__ void ld_row(const float4* __restrict__ row,
-                                       float (&out)[N]) {
+__device__ __forceinline__ void ld_row(const float4* row, float (&out)[N]) {
 #pragma unroll
   for (int q = 0; q < (N + 3) / 4; ++q) {
     float4 x = __ldg(row + q);
@@ -1507,9 +1605,9 @@ __device__ __forceinline__ float mis_weight(float a, float b) {
 
 // kernel_SampleLightSource (integrator_pt.cpp:350-424); MIS weights for the
 // MIS integrator only
-template <int IT, int MT>
+template <int IT, int MT, class C>
 __device__ V4 stage_nee(const Tables& tb, const Mat& m, V4 tex, St& s,
-                        Entry* __restrict__ stack) {
+                        C& cx) {
   const V4 zero = {0.0f, 0.0f, 0.0f, 0.0f};
   float rnd_id = rnd1(s.rngx, s.rngy);
   float r[4];
@@ -1526,7 +1624,7 @@ __device__ V4 stage_nee(const Tables& tb, const Mat& m, V4 tex, St& s,
   float offs = maxn(maxn(hp.x, maxn(hp.y, hp.z)), 1.0f) * F(5e-6);
   V3 spos = add(hp, scale(s.hit_norm, offs));
   if (!(dot3(sdir, lnorm) < 0.0f || omni)) return zero;
-  if (trace<true>(tb, spos, sdir, dist * F(0.9995), s, stack).tri >= 0)
+  if (trace<true>(tb, spos, sdir, dist * F(0.9995), cx).tri >= 0)
     return zero;
   float bsdf_pdf;
   V4 val = mat_eval<MT>(m, tex, sdir, neg(s.d), s.hit_norm,
@@ -1616,11 +1714,10 @@ __device__ void stage_next_bounce(const Tables& tb, const Mat& m, V4 tex,
 // lane's hit.  At a light-source material the bounce ends the path and takes
 // no NEE result, so NEE only advances the RNG as the plain version's does
 // (rnd1, rnd4) and skips the light sample, the shadow trace and the eval.
-template <int IT, int MT>
-__device__ void shade_hit(const Tables& tb, St& s, bool prim,
-                          Entry* __restrict__ stack) {
+template <int IT, int MT, class C>
+__device__ void shade_hit(const Tables& tb, St& s, bool prim, C& cx) {
   Mat m = fetch_mat(tb, s.flags & 0x00FFFFFFu);
-  HC3_TICK_SHADE(s, m.mtype);
+  HC3_TICK_SHADE(cx, m.mtype);
   V4 tex = tex_tap(tb, m, s);
   V4 sc = {0.0f, 0.0f, 0.0f, 0.0f};
   if constexpr (IT != INTEGRATOR_NAIVE) {
@@ -1629,7 +1726,7 @@ __device__ void shade_hit(const Tables& tb, St& s, bool prim,
       rnd1(s.rngx, s.rngy);
       rnd4(s.rngx, s.rngy, r);
     } else {
-      sc = stage_nee<IT, MT>(tb, m, tex, s, stack);
+      sc = stage_nee<IT, MT>(tb, m, tex, s, cx);
     }
   }
   stage_next_bounce<IT, MT>(tb, m, tex, s, sc, prim);
@@ -1724,54 +1821,403 @@ __device__ __forceinline__ int n_bounces(int depth) {
   return depth + (IT == INTEGRATOR_NAIVE ? 1 : 0);
 }
 
-template <int IT, int MT, bool ENV>
-__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
-mega_sample_kernel(Tables tb, const float* __restrict__ xy,
-                   const long long* __restrict__ su_in, int depth, int n,
-                   float* __restrict__ contrib, long long* __restrict__ su_out) {
-  int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  Entry stack[MEGA_STACK];
-  St s;
-  HC3_ZERO(s);
-  s.rngx = (uint32_t)su_in[i];
-  s.rngy = (uint32_t)su_in[n + i];
-  stage_init(tb, xy[i], xy[n + i], s);
-  const int nb = n_bounces<IT>(depth);
-  for (int b = 0; b < nb && !dead(s); ++b) {
-    stage_trace(tb, s, b == 0, stack);
-    if (!dead(s)) shade_hit<IT, MT>(tb, s, b == 0, stack);
+// Where a block's shared memory holds what (byte offsets, each 16-aligned)
+// for one pack and entry point: when the layout is on chip (the geometry
+// fits GEOM_CHIP_BYTES and the walk's stack need STACK_CHIP_MAX) the
+// geometry and the walk stacks (BLOCK x stack_n entries); then the pool of
+// `pool` lanes (0: one lane a thread): its f32 and u32 state rows
+// (component-major), the class lists, each lane's class and rank, the
+// class counts.
+struct Layout {
+  int nodes, rows, shade, index, stack, pf, pu, list, rank, cls, hist;
+  int n_nodes, n_tris, stack_n, chip, pool, bytes;
+};
+
+inline int up16(int b) { return (b + 15) & ~15; }
+
+// dims: the walk's stack need, texels, textured, wide nodes, real
+// triangles; nf / nu: the pool's f32 / u32 rows
+inline Layout layout_of(const int* dims, int nf, int nu, int pool) {
+  Layout L{};
+  L.stack_n = dims[0] > 0 ? dims[0] : 1;
+  L.n_nodes = dims[3];
+  L.n_tris = dims[4];
+  int b = 0;
+  L.chip = L.n_nodes * 144 + L.n_tris * (48 + 4 * SHADE_CHIP_W + 4) <=
+               GEOM_CHIP_BYTES &&
+           L.stack_n <= STACK_CHIP_MAX;
+  if (L.chip) {
+    L.nodes = b;
+    b += L.n_nodes * 144;
+    L.rows = b;
+    b += L.n_tris * 48;
+    L.shade = b;
+    b += up16(L.n_tris * SHADE_CHIP_W * 4);
+    L.index = b;
+    b += up16(L.n_tris * 4);
+    L.stack = b;
+    b += BLOCK * L.stack_n * 8;
   }
-  V4 c = env_contribute<IT, ENV>(tb, s);
-  contrib[i] = c.x;
-  contrib[n + i] = c.y;
-  contrib[2 * n + i] = c.z;
-  contrib[3 * n + i] = c.w;
-  su_out[i] = s.rngx;
-  su_out[n + i] = s.rngy;
-  su_out[2 * n + i] = s.flags;
-  HC3_FLUSH(s);
+  L.pool = pool;
+  L.pf = b;
+  b += nf * pool * 4;
+  L.pu = b;
+  b += nu * pool * 4;
+  L.list = b;
+  b += pool * 2;
+  L.rank = b;
+  b += pool * 2;
+  L.cls = b;
+  b += pool;
+  L.hist = b;
+  b += up16((2 * N_CLASSES + 1) * 4);
+  L.bytes = b;
+  return L;
 }
 
-template <int IT, int MT, bool ENV>
-__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
-mega_regen_kernel(Tables tb, const float* __restrict__ xy,
-                  const float* __restrict__ sf, const long long* __restrict__ su,
-                  int first, int k, int depth, int n,
-                  float* __restrict__ sf_out, long long* __restrict__ su_out) {
-  int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  Entry stack[MEGA_STACK];
-  float xs = xy[i], ys = xy[n + i];
+// one element from device to shared memory without a register stop
+// (cp.async; 16 or 4 bytes), and the wait for every copy this thread issued
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  memcpy(dst, src, 4);
+#endif
+}
+__device__ __forceinline__ void copies_done() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+#endif
+  __syncthreads();
+}
+
+// The block's tables: the geometry copied on chip when the layout holds it
+// (nodes and shade rows padded); once per block.
+__device__ Tables tables_on_chip(Tables tb, const Layout& L, char* sm) {
+  const int tid = threadIdx.x;
+  if (L.chip) {
+    const int M = L.n_nodes, T = L.n_tris;
+    float4* ns = reinterpret_cast<float4*>(sm + L.nodes);
+    for (int i = tid; i < M * 8; i += BLOCK)
+      copy16(ns + 9 * (i >> 3) + (i & 7), tb.nodes + i);
+    float4* rs = reinterpret_cast<float4*>(sm + L.rows);
+    for (int i = tid; i < T * 3; i += BLOCK) copy16(rs + i, tb.rows + i);
+    float* ss = reinterpret_cast<float*>(sm + L.shade);
+    for (int i = tid; i < T * SHADE_COLS; i += BLOCK) {
+      const int t = i / SHADE_COLS, c = i % SHADE_COLS;
+      copy4(ss + SHADE_CHIP_W * t + c, tb.shade + 32 * t + c);
+    }
+    int* is = reinterpret_cast<int*>(sm + L.index);
+    for (int i = tid; i < T; i += BLOCK) copy4(is + i, tb.index + i);
+    tb.nodes = ns;
+    tb.rows = rs;
+    tb.shade = ss;
+    tb.index = is;
+  }
+  copies_done();
+  return tb;
+}
+
+// A block's pool: P lanes' state in shared memory, row j of lane l at
+// f[j * P + l] (the regen state's rows: RF_NROWS f32, then rngx, rngy,
+// flags, ndone, bcnt), and the lists one phase's lanes are taken from.
+struct Pool {
+  float* f;
+  uint32_t* u;
+  unsigned short* list;               // lanes, class by class
+  unsigned short* rank;               // each lane's place in its class
+  signed char* cls;                   // each lane's class (-1: none)
+  int* hist;                          // [N_CLASSES] lanes a class
+  int* off;                           // [N_CLASSES + 1] where a class starts
+  int P;                              // lanes a pool (the entry point's)
+};
+
+__device__ __forceinline__ Pool pool_of(const Layout& L, char* sm, int P) {
+  Pool p;
+  p.f = reinterpret_cast<float*>(sm + L.pf);
+  p.u = reinterpret_cast<uint32_t*>(sm + L.pu);
+  p.list = reinterpret_cast<unsigned short*>(sm + L.list);
+  p.rank = reinterpret_cast<unsigned short*>(sm + L.rank);
+  p.cls = reinterpret_cast<signed char*>(sm + L.cls);
+  p.hist = reinterpret_cast<int*>(sm + L.hist);
+  p.off = p.hist + N_CLASSES;
+  p.P = P;
+  return p;
+}
+
+enum { U_RNGX = 0, U_RNGY = 1, U_FLAGS = 2, U_NDONE = 3, U_BCNT = 4 };
+
+__device__ __forceinline__ uint32_t& pu(const Pool& p, int j, int l) {
+  return p.u[j * p.P + l];
+}
+__device__ __forceinline__ float& pf(const Pool& p, int j, int l) {
+  return p.f[j * p.P + l];
+}
+
+__device__ __forceinline__ void get_st(const Pool& p, int l, St& s) {
+  s.o = {pf(p, 0, l), pf(p, 1, l), pf(p, 2, l)};
+  s.d = {pf(p, 3, l), pf(p, 4, l), pf(p, 5, l)};
+  s.accum = {pf(p, 6, l), pf(p, 7, l), pf(p, 8, l), pf(p, 9, l)};
+  s.thr = {pf(p, 10, l), pf(p, 11, l), pf(p, 12, l), pf(p, 13, l)};
+  s.mis_pdf = pf(p, 14, l);
+  s.mis_ior = pf(p, 15, l);
+  s.hit_pos = {pf(p, 16, l), pf(p, 17, l), pf(p, 18, l)};
+  s.hit_norm = {pf(p, 19, l), pf(p, 20, l), pf(p, 21, l)};
+  s.hit_u = pf(p, 22, l);
+  s.hit_v = pf(p, 23, l);
+  s.hit_dist = pf(p, 24, l);
+  s.hit_lgt = pf(p, 25, l);
+#if HC3_SPECTRAL
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s.lam[j] = pf(p, 26 + j, l);
+#endif
+  s.rngx = pu(p, U_RNGX, l);
+  s.rngy = pu(p, U_RNGY, l);
+  s.flags = pu(p, U_FLAGS, l);
+}
+
+__device__ __forceinline__ void put_hit_rows(const Pool& p, int l,
+                                             const St& s) {
+  const float f[] = {s.hit_pos.x, s.hit_pos.y, s.hit_pos.z, s.hit_norm.x,
+                     s.hit_norm.y, s.hit_norm.z, s.hit_u, s.hit_v,
+                     s.hit_dist, s.hit_lgt};
+#pragma unroll
+  for (int j = 0; j < 10; ++j) pf(p, 16 + j, l) = f[j];
+}
+
+// every row, or (HIT false: after a shade, which only reads the hit) all
+// but the hit's
+template <bool HIT = true>
+__device__ __forceinline__ void put_st(const Pool& p, int l, const St& s) {
+  const float f[] = {s.o.x, s.o.y, s.o.z, s.d.x, s.d.y, s.d.z,
+                     s.accum.x, s.accum.y, s.accum.z, s.accum.w,
+                     s.thr.x, s.thr.y, s.thr.z, s.thr.w, s.mis_pdf,
+                     s.mis_ior};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) pf(p, j, l) = f[j];
+#if HC3_SPECTRAL
+#pragma unroll
+  for (int j = 0; j < 4; ++j) pf(p, 26 + j, l) = s.lam[j];
+#endif
+  if (HIT) put_hit_rows(p, l, s);
+  pu(p, U_RNGX, l) = s.rngx;
+  pu(p, U_RNGY, l) = s.rngy;
+  pu(p, U_FLAGS, l) = s.flags;
+}
+
+// the trace phase's lane: it reads the ray and writes the flags, and the
+// hit where it found one (a miss keeps the last hit, as the plain
+// version's)
+template <class C>
+__device__ __forceinline__ void trace_lane(const Tables& tb, const Pool& p,
+                                           int l, bool prim, C& cx) {
   St s;
-  HC3_ZERO(s);
+  s.o = {pf(p, 0, l), pf(p, 1, l), pf(p, 2, l)};
+  s.d = {pf(p, 3, l), pf(p, 4, l), pf(p, 5, l)};
+  s.flags = pu(p, U_FLAGS, l);
+  stage_trace(tb, s, prim, cx);
+  pu(p, U_FLAGS, l) = s.flags;
+  if (!dead(s)) put_hit_rows(p, l, s);
+}
+
+// The lanes [0, m) of the pool sorted by class (cls_of(l), -1 for none)
+// into p.list, class by class, by warp vote and shared counters; returns
+// how many were listed.  Every thread of the block calls it (it holds
+// barriers), and every warp runs the same trip count (P % BLOCK == 0).
+template <class F>
+__device__ int build_lists(const Pool& p, int m, F cls_of) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < N_CLASSES) p.hist[tid] = 0;
+  __syncthreads();
+  for (int l = tid; l < p.P; l += BLOCK) {
+    const int c = l < m ? cls_of(l) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, c);
+    const int leader = __ffs(peers) - 1;
+    int first = 0;
+    if (c >= 0 && lane == leader) first = atomicAdd(p.hist + c, __popc(peers));
+    first = __shfl_sync(0xffffffffu, first, leader);
+    p.cls[l] = static_cast<signed char>(c);
+    p.rank[l] = static_cast<unsigned short>(
+        first + __popc(peers & ((1u << lane) - 1u)));
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int a = 0;
+    for (int c = 0; c < N_CLASSES; ++c) {
+      p.off[c] = a;
+      a += p.hist[c];
+    }
+    p.off[N_CLASSES] = a;
+  }
+  __syncthreads();
+  for (int l = tid; l < m; l += BLOCK) {
+    const int c = p.cls[l];
+    if (c >= 0)
+      p.list[p.off[c] + p.rank[l]] = static_cast<unsigned short>(l);
+  }
+  __syncthreads();
+  return p.off[N_CLASSES];
+}
+
+__device__ __forceinline__ bool dead_at(const Pool& p, int l) {
+  return (pu(p, U_FLAGS, l) & FLAG_IS_DEAD) != 0;
+}
+
+// a live lane's class: the material kind of its hit
+__device__ __forceinline__ int shade_class(const Tables& tb, const Pool& p,
+                                           int l) {
+  const uint32_t flags = pu(p, U_FLAGS, l);
+  if (flags & FLAG_IS_DEAD) return -1;
+  const uint32_t mid = flags & 0x00FFFFFFu;
+  return mat_class(
+      __ldg(tb.mat + (mid < 127u ? mid : 127u) * (MF_NROWS / 4)).x);
+}
+
+// this block's pools: a contiguous range, balanced to within one pool
+__device__ __forceinline__ void pool_range(int n, int P, int& p0, int& p1) {
+  const long long pools = (n + P - 1) / P;
+  p0 = static_cast<int>(pools * blockIdx.x / gridDim.x);
+  p1 = static_cast<int>(pools * (blockIdx.x + 1) / gridDim.x);
+}
+
+// a thread's walk stack: its slice of the block's in shared memory
+// (CHIP), or `local`
+template <bool CHIP>
+__device__ __forceinline__ Ctx<CHIP> ctx_of(const Layout& L, char* sm,
+                                           Entry* local) {
+  Ctx<CHIP> cx;
+  cx.stack =
+      CHIP ? reinterpret_cast<Entry*>(sm + L.stack) + threadIdx.x : local;
+  return cx;
+}
+
+// The fixed chain.  With several material kinds it runs over a block's
+// pools: every lane starts its sample, then each bounce traces the live
+// lanes and shades the hit ones class by class (a dead lane leaves the
+// lists), then every lane contributes.  A variant with one material kind
+// (the GLTF box's) has nothing to regroup, and measured slower pooled
+// (scripts/k1_measure.py, variant `pooled`): there one thread runs one
+// lane's whole sample in registers, one lane a thread of a full grid.
+template <int IT, int MT, bool ENV, bool CHIP>
+__global__ void __launch_bounds__(BLOCK, SAMPLE_MIN_BLOCKS)
+mega_sample_kernel(Tables tg, Layout lay, const float* __restrict__ xy,
+                   const long long* __restrict__ su_in, int depth, int n,
+                   float* __restrict__ contrib, long long* __restrict__ su_out) {
+  extern __shared__ float4 smem[];
+  char* sm = reinterpret_cast<char*>(smem);
+  const Tables tb = tables_on_chip(tg, lay, sm);
+  Entry local[CHIP ? 1 : MEGA_STACK];
+  auto cx = ctx_of<CHIP>(lay, sm, local);
+  const int nb = n_bounces<IT>(depth);
+  if constexpr (N_KINDS <= 1) {
+    const int i = blockIdx.x * BLOCK + threadIdx.x;
+    if (i < n) {
+      St s;
+      s.rngx = (uint32_t)su_in[i];
+      s.rngy = (uint32_t)su_in[n + i];
+      stage_init(tb, xy[i], xy[n + i], s);
+      for (int b = 0; b < nb && !dead(s); ++b) {
+        stage_trace(tb, s, b == 0, cx);
+        if (!dead(s)) shade_hit<IT, MT>(tb, s, b == 0, cx);
+      }
+      V4 c = env_contribute<IT, ENV>(tb, s);
+      contrib[i] = c.x;
+      contrib[n + i] = c.y;
+      contrib[2 * n + i] = c.z;
+      contrib[3 * n + i] = c.w;
+      su_out[i] = s.rngx;
+      su_out[n + i] = s.rngy;
+      su_out[2 * n + i] = s.flags;
+    }
+  } else {
+    const Pool pl = pool_of(lay, sm, SAMPLE_POOL);
+    int p0, p1;
+    pool_range(n, SAMPLE_POOL, p0, p1);
+    for (int p = p0; p < p1; ++p) {
+      const int base = p * SAMPLE_POOL, m = min(SAMPLE_POOL, n - base);
+      for (int l = threadIdx.x; l < m; l += BLOCK) {
+        const int i = base + l;
+        St s;
+        s.rngx = (uint32_t)su_in[i];
+        s.rngy = (uint32_t)su_in[n + i];
+        stage_init(tb, xy[i], xy[n + i], s);
+        put_st(pl, l, s);
+      }
+      __syncthreads();
+      for (int b = 0; b < nb; ++b) {
+        // every lane lives at the first bounce: no list
+        const int live = b == 0 ? m : build_lists(pl, m, [&](int l) {
+          return dead_at(pl, l) ? -1 : 0;
+        });
+        if (live == 0) break;
+        for (int j = threadIdx.x; j < live; j += BLOCK)
+          trace_lane(tb, pl, b == 0 ? j : pl.list[j], b == 0, cx);
+        __syncthreads();
+        const int hits =
+            build_lists(pl, m, [&](int l) { return shade_class(tb, pl, l); });
+        for (int j = threadIdx.x; j < hits; j += BLOCK) {
+          const int l = pl.list[j];
+          St s;
+          get_st(pl, l, s);
+          shade_hit<IT, MT>(tb, s, b == 0, cx);
+          put_st<false>(pl, l, s);
+        }
+        __syncthreads();
+      }
+      for (int l = threadIdx.x; l < m; l += BLOCK) {
+        const int i = base + l;
+        St s;
+        get_st(pl, l, s);
+        V4 c = env_contribute<IT, ENV>(tb, s);
+        contrib[i] = c.x;
+        contrib[n + i] = c.y;
+        contrib[2 * n + i] = c.z;
+        contrib[3 * n + i] = c.w;
+        su_out[i] = s.rngx;
+        su_out[n + i] = s.rngy;
+        su_out[2 * n + i] = s.flags;
+      }
+      __syncthreads();
+    }
+  }
+  HC3_FLUSH(cx);
+}
+
+// `k` regen iterations of one lane a thread, the lane in registers: a
+// variant with one material kind, which has nothing to regroup (pooled,
+// scripts/k1_measure.py variant `pooled`, it measured slower: the walk
+// takes a third of the time, and the barriers around it cost more than
+// the stages' regrouping saves)
+template <int IT, int MT, bool ENV, class C>
+__device__ __forceinline__ void regen_lane(
+    const Tables& tb, const float* __restrict__ xy,
+    const float* __restrict__ sf, const long long* __restrict__ su,
+    int first, int k, uint32_t nb, int n, float* __restrict__ sf_out,
+    long long* __restrict__ su_out, C& cx) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n) return;
+  const float xs = xy[i], ys = xy[n + i];
+  constexpr int A = RF_NROWS - 4;
+  St s;
   V4 acc;
   uint32_t ndone, bcnt;
   if (first) {                          // rfirst
     s.rngx = (uint32_t)su[i];
     s.rngy = (uint32_t)su[n + i];
     stage_init(tb, xs, ys, s);
-    stage_trace(tb, s, true, stack);
+    stage_trace(tb, s, true, cx);
     acc = {0.0f, 0.0f, 0.0f, 0.0f};
     ndone = bcnt = 0u;
     --k;
@@ -1794,7 +2240,6 @@ mega_regen_kernel(Tables tb, const float* __restrict__ xy,
 #pragma unroll
     for (int j = 0; j < 4; ++j) s.lam[j] = R(26 + j);
 #endif
-    constexpr int A = RF_NROWS - 4;     // the accumulator's first row
     acc = {R(A), R(A + 1), R(A + 2), R(A + 3)};
 #undef R
     s.rngx = (uint32_t)su[i];
@@ -1803,33 +2248,25 @@ mega_regen_kernel(Tables tb, const float* __restrict__ xy,
     ndone = (uint32_t)su[3 * n + i];
     bcnt = (uint32_t)su[4 * n + i];
   }
-  const uint32_t nb = (uint32_t)n_bounces<IT>(depth);
-  for (int it = 0; it < k; ++it) {      // rmid
-    // 1. flush a lane that missed at the last trace, restart its pixel
-    bool act = !dead(s);
-    if (!act) {
+  for (int it = 0; it < k; ++it) {
+    // flush a lane dead at the last trace and restart its pixel, or shade,
+    // truncate at the depth and flush a path that died; then trace
+    bool flush = dead(s);
+    if (!flush) {
+      shade_hit<IT, MT>(tb, s, bcnt == 0u, cx);
+      ++bcnt;
+      if (bcnt >= nb) s.flags |= FLAG_IS_DEAD;
+      flush = dead(s);
+    }
+    if (flush) {
       V4 c = env_contribute<IT, ENV>(tb, s);
       acc = {acc.x + c.x, acc.y + c.y, acc.z + c.z, acc.w + c.w};
       ++ndone;
       stage_init(tb, xs, ys, s);
       bcnt = 0u;
-    } else {
-      // 2. shade; truncate at the depth; 3. flush a path that died
-      shade_hit<IT, MT>(tb, s, bcnt == 0u, stack);
-      ++bcnt;
-      if (bcnt >= nb) s.flags |= FLAG_IS_DEAD;
-      if (dead(s)) {
-        V4 c = env_contribute<IT, ENV>(tb, s);
-        acc = {acc.x + c.x, acc.y + c.y, acc.z + c.z, acc.w + c.w};
-        ++ndone;
-        stage_init(tb, xs, ys, s);
-        bcnt = 0u;
-      }
     }
-    // 4. trace every lane
-    stage_trace(tb, s, bcnt == 0u, stack);
+    stage_trace(tb, s, bcnt == 0u, cx);
   }
-  float* f = sf_out + i;
   const float vals[RF_NROWS] = {
       s.o.x, s.o.y, s.o.z, s.d.x, s.d.y, s.d.z,
       s.accum.x, s.accum.y, s.accum.z, s.accum.w,
@@ -1842,31 +2279,139 @@ mega_regen_kernel(Tables tb, const float* __restrict__ xy,
 #endif
       acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
-  for (int j = 0; j < RF_NROWS; ++j) f[(size_t)j * n] = vals[j];
+  for (int j = 0; j < RF_NROWS; ++j) sf_out[(size_t)j * n + i] = vals[j];
   const uint32_t uvals[RU_NROWS] = {s.rngx, s.rngy, s.flags, ndone, bcnt};
 #pragma unroll
   for (int j = 0; j < RU_NROWS; ++j) su_out[(size_t)j * n + i] = uvals[j];
-  HC3_FLUSH(s);
 }
 
-inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
+// `k` regen iterations over a block's pools.  Each iteration shades the
+// live lanes class by class (truncating at the depth), then flushes and
+// restarts the dead ones (dead at the last trace, or by this shade), then
+// traces every lane: a lane's own steps in the plain version's order.  (A
+// lane's trace run at once after its shade or restart, in the same phase,
+// measured 10-20% slower.)
+template <int IT, int MT, bool ENV, bool CHIP>
+__global__ void __launch_bounds__(BLOCK, REGEN_MIN_BLOCKS)
+mega_regen_kernel(Tables tg, Layout lay, const float* __restrict__ xy,
+                  const float* __restrict__ sf, const long long* __restrict__ su,
+                  int first, int k, int depth, int n,
+                  float* __restrict__ sf_out, long long* __restrict__ su_out) {
+  extern __shared__ float4 smem[];
+  char* sm = reinterpret_cast<char*>(smem);
+  const Tables tb = tables_on_chip(tg, lay, sm);
+  Entry local[CHIP ? 1 : MEGA_STACK];
+  auto cx = ctx_of<CHIP>(lay, sm, local);
+  constexpr int A = RF_NROWS - 4;       // the accumulator's first row
+  const uint32_t nb = (uint32_t)n_bounces<IT>(depth);
+  if constexpr (N_KINDS <= 1) {
+    regen_lane<IT, MT, ENV>(tb, xy, sf, su, first, k, nb, n, sf_out, su_out,
+                            cx);
+    HC3_FLUSH(cx);
+    return;
+  }
+  const Pool pl = pool_of(lay, sm, REGEN_POOL);
+  int p0, p1;
+  pool_range(n, REGEN_POOL, p0, p1);
+  for (int p = p0; p < p1; ++p) {
+    const int base = p * REGEN_POOL, m = min(REGEN_POOL, n - base);
+    for (int l = threadIdx.x; l < m; l += BLOCK) {
+      const int i = base + l;
+      if (first) {                      // rfirst: start, then trace below
+        St s;
+        s.rngx = (uint32_t)su[i];
+        s.rngy = (uint32_t)su[n + i];
+        stage_init(tb, xy[i], xy[n + i], s);
+        put_st(pl, l, s);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pf(pl, A + j, l) = 0.0f;
+        pu(pl, U_NDONE, l) = 0u;
+        pu(pl, U_BCNT, l) = 0u;
+      } else {
+#pragma unroll
+        for (int j = 0; j < RF_NROWS; ++j)
+          pf(pl, j, l) = sf[(size_t)j * n + i];
+#pragma unroll
+        for (int j = 0; j < RU_NROWS; ++j)
+          pu(pl, j, l) = (uint32_t)su[(size_t)j * n + i];
+      }
+    }
+    __syncthreads();
+    for (int it = first ? -1 : 0; it < k - (first ? 1 : 0); ++it) {
+      if (it >= 0) {
+        // 1. shade the live lanes by class; truncate at the depth
+        const int hits =
+            build_lists(pl, m, [&](int l) { return shade_class(tb, pl, l); });
+        for (int j = threadIdx.x; j < hits; j += BLOCK) {
+          const int l = pl.list[j];
+          St s;
+          get_st(pl, l, s);
+          const uint32_t bc = pu(pl, U_BCNT, l);
+          shade_hit<IT, MT>(tb, s, bc == 0u, cx);
+          if (bc + 1u >= nb) s.flags |= FLAG_IS_DEAD;
+          put_st<false>(pl, l, s);
+          pu(pl, U_BCNT, l) = bc + 1u;
+        }
+        __syncthreads();
+        // 2. flush every dead lane's sample and restart its pixel
+        const int dead_n =
+            build_lists(pl, m, [&](int l) { return dead_at(pl, l) ? 0 : -1; });
+        for (int j = threadIdx.x; j < dead_n; j += BLOCK) {
+          const int l = pl.list[j], i = base + l;
+          St s;
+          get_st(pl, l, s);
+          V4 c = env_contribute<IT, ENV>(tb, s);
+          pf(pl, A, l) = pf(pl, A, l) + c.x;
+          pf(pl, A + 1, l) = pf(pl, A + 1, l) + c.y;
+          pf(pl, A + 2, l) = pf(pl, A + 2, l) + c.z;
+          pf(pl, A + 3, l) = pf(pl, A + 3, l) + c.w;
+          pu(pl, U_NDONE, l) = pu(pl, U_NDONE, l) + 1u;
+          stage_init(tb, xy[i], xy[n + i], s);
+          put_st(pl, l, s);
+          pu(pl, U_BCNT, l) = 0u;
+        }
+        __syncthreads();
+      }
+      // 3. trace every lane (all live now)
+      for (int l = threadIdx.x; l < m; l += BLOCK)
+        trace_lane(tb, pl, l, pu(pl, U_BCNT, l) == 0u, cx);
+      __syncthreads();
+    }
+    for (int l = threadIdx.x; l < m; l += BLOCK) {
+      const int i = base + l;
+#pragma unroll
+      for (int j = 0; j < RF_NROWS; ++j)
+        sf_out[(size_t)j * n + i] = pf(pl, j, l);
+#pragma unroll
+      for (int j = 0; j < RU_NROWS; ++j)
+        su_out[(size_t)j * n + i] = pu(pl, j, l);
+    }
+    __syncthreads();
+  }
+  HC3_FLUSH(cx);
+}
 
-inline Tables tables(const void* const* t, int n_texels, int textured) {
-  return Tables{static_cast<const float4*>(t[0]),
-                static_cast<const float4*>(t[1]),
-                static_cast<const int*>(t[2]),
-                static_cast<const float*>(t[3]),
-                static_cast<const float4*>(t[4]),
-                static_cast<const float4*>(t[5]),
-                static_cast<const float*>(t[6]),
-                static_cast<const float*>(t[7]),
-                static_cast<const float4*>(t[8]), n_texels, textured
+// the pack's tables as the kernels take them, in device memory (the kernels
+// copy what fits on chip)
+inline Tables tables(const void* const* t, const int* dims) {
+  Tables tb{};
+  tb.nodes = static_cast<const float4*>(t[0]);
+  tb.rows = static_cast<const float4*>(t[1]);
+  tb.index = static_cast<const int*>(t[2]);
+  tb.shade = static_cast<const float*>(t[3]);
+  tb.mat = static_cast<const float4*>(t[4]);
+  tb.light = static_cast<const float4*>(t[5]);
+  tb.tex = static_cast<const float*>(t[6]);
+  tb.consts = static_cast<const float*>(t[7]);
+  tb.texels = static_cast<const float4*>(t[8]);
+  tb.n_texels = dims[1];
+  tb.textured = dims[2];
 #if HC3_SPECTRAL
-                , static_cast<const float*>(t[9]),
-                static_cast<const int*>(t[10]),
-                static_cast<const float4*>(t[11])
+  tb.spd = static_cast<const float*>(t[9]);
+  tb.spd_off = static_cast<const int*>(t[10]);
+  tb.cie = static_cast<const float4*>(t[11]);
 #endif
-  };
+  return tb;
 }
 
 // the variant this library holds
@@ -1874,44 +2419,112 @@ constexpr int V_IT = HC3_INTEGRATOR, V_MT = HC3_MTYPES;
 constexpr bool V_ENV = HC3_ENV != 0;
 static_assert(V_IT >= INTEGRATOR_NAIVE && V_IT <= INTEGRATOR_MIS,
               "HC3_INTEGRATOR: 0, 1 or 2");
+static_assert(SAMPLE_POOL % BLOCK == 0 && SAMPLE_POOL <= 65535 &&
+                  REGEN_POOL % BLOCK == 0 && REGEN_POOL <= 65535,
+              "a pool holds a multiple of BLOCK lanes");
+
+// the pool rows of each entry point: the fixed chain keeps no accumulator,
+// sample count or bounce count; a variant with one material kind no pool
+constexpr int SAMPLE_NF = RF_NROWS - 4, SAMPLE_NU = 3;
+
+inline Layout sample_layout(const int* dims) {
+  return layout_of(dims, SAMPLE_NF, SAMPLE_NU, N_KINDS > 1 ? SAMPLE_POOL : 0);
+}
+inline Layout regen_layout(const int* dims) {
+  return layout_of(dims, RF_NROWS, RU_NROWS, N_KINDS > 1 ? REGEN_POOL : 0);
+}
+
+// Blocks the card holds at once of `kernel` at `bytes` of shared memory
+// a block (after allowing them), and the persistent grid: that many blocks
+// on every SM, at most one a pool.
+template <class K>
+cudaError_t occupancy(K kernel, int bytes, int& per_sm, int& sms) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  int dev;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK,
+                                                       bytes);
+}
+
+// (a layout without a pool: one lane a thread, every lane its thread)
+template <class K>
+cudaError_t grid_of(K kernel, const Layout& L, int n, int& grid) {
+  int per_sm = 0, sms = 0;
+  cudaError_t e = occupancy(kernel, L.bytes, per_sm, sms);
+  if (e != cudaSuccess) return e;
+  if (L.pool == 0) {
+    grid = (n + BLOCK - 1) / BLOCK;
+    return cudaSuccess;
+  }
+  const int pools = (n + L.pool - 1) / L.pool;
+  const int resident = (per_sm > 1 ? per_sm : 1) * sms;
+  grid = pools < resident ? pools : resident;
+  return cudaSuccess;
+}
+
+// the launch of `kernel` (the on-chip instantiation K or the device-memory
+// one KL, by the layout) with `args`
+template <class K, class KL, class... A>
+int launch(K kernel, KL kernel_local, const Layout& L, int n, void* stream,
+           A... args) {
+  int grid = 0;
+  cudaError_t e = L.chip ? grid_of(kernel, L, n, grid)
+                               : grid_of(kernel_local, L, n, grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (L.chip)
+    kernel<<<grid, BLOCK, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+        args...);
+  else
+    kernel_local<<<grid, BLOCK, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+        args...);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 // The tables, in this order: nodes, rows, index (the pack's wide BVH,
-// accel/wide_bvh.py, whose walk needs `stack` entries per lane: refused
-// beyond MEGA_STACK), shade, mat, light, tex, consts, texels (the pack's
-// other tables, models/megakernel.py); a spectral build's then spd,
-// spd_off, cie.
-extern "C" int hc3_mega_sample(const void* const* tabs, int stack,
-                               int n_texels, int textured, const void* xy,
-                               const void* su_in, int depth, int n,
-                               void* contrib, void* su_out, void* stream) {
-  if (stack < 0 || stack > MEGA_STACK)
+// accel/wide_bvh.py, whose walk needs dims[0] entries of stack a lane:
+// refused beyond MEGA_STACK), shade, mat, light, tex, consts, texels (the
+// pack's other tables, models/megakernel.py); a spectral build's then spd,
+// spd_off, cie.  dims: that stack need, the texel count, textured, the wide
+// nodes, the real triangles (layout_of).  A launch the card refuses (too
+// much shared memory) returns its error and runs nothing.
+extern "C" int hc3_mega_sample(const void* const* tabs, const int* dims,
+                               const void* xy, const void* su_in, int depth,
+                               int n, void* contrib, void* su_out,
+                               void* stream) {
+  if (dims[0] < 0 || dims[0] > MEGA_STACK)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0)
-    mega_sample_kernel<V_IT, V_MT, V_ENV><<<blocks(n), BLOCK, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        tables(tabs, n_texels, textured), static_cast<const float*>(xy),
-        static_cast<const long long*>(su_in), depth, n,
-        static_cast<float*>(contrib), static_cast<long long*>(su_out));
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const Layout L = sample_layout(dims);
+  return launch(mega_sample_kernel<V_IT, V_MT, V_ENV, true>,
+                mega_sample_kernel<V_IT, V_MT, V_ENV, false>, L, n, stream,
+                tables(tabs, dims), L, static_cast<const float*>(xy),
+                static_cast<const long long*>(su_in), depth, n,
+                static_cast<float*>(contrib),
+                static_cast<long long*>(su_out));
 }
 
-extern "C" int hc3_mega_regen(const void* const* tabs, int stack,
-                              int n_texels, int textured, const void* xy,
-                              const void* sf_in, const void* su_in, int first,
-                              int k, int depth, int n, void* sf_out,
-                              void* su_out, void* stream) {
-  if (stack < 0 || stack > MEGA_STACK)
+extern "C" int hc3_mega_regen(const void* const* tabs, const int* dims,
+                              const void* xy, const void* sf_in,
+                              const void* su_in, int first, int k, int depth,
+                              int n, void* sf_out, void* su_out,
+                              void* stream) {
+  if (dims[0] < 0 || dims[0] > MEGA_STACK)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0)
-    mega_regen_kernel<V_IT, V_MT, V_ENV><<<blocks(n), BLOCK, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        tables(tabs, n_texels, textured), static_cast<const float*>(xy),
-        static_cast<const float*>(sf_in), static_cast<const long long*>(su_in),
-        first, k, depth, n, static_cast<float*>(sf_out),
-        static_cast<long long*>(su_out));
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const Layout L = regen_layout(dims);
+  return launch(mega_regen_kernel<V_IT, V_MT, V_ENV, true>,
+                mega_regen_kernel<V_IT, V_MT, V_ENV, false>, L, n, stream,
+                tables(tabs, dims), L, static_cast<const float*>(xy),
+                static_cast<const float*>(sf_in),
+                static_cast<const long long*>(su_in), first, k, depth, n,
+                static_cast<float*>(sf_out), static_cast<long long*>(su_out));
 }
 
 #ifdef HC3_COUNT
@@ -1929,16 +2542,49 @@ extern "C" int hc3_mega_counts_read(void* out) {
 }
 #endif
 
-// registers per thread and local (spill and stack) bytes of kernel `which`
-// (0: mega_sample_kernel, 1: mega_regen_kernel)
-extern "C" int hc3_mega_attrs(int which, int* out) {
+// what hc3_mega_attrs reports of one instantiation
+template <class K>
+int attrs_of(K kernel, const Layout* L, int pool, int* out) {
   cudaFuncAttributes a;
-  cudaError_t e =
-      which == 0
-          ? cudaFuncGetAttributes(&a, mega_sample_kernel<V_IT, V_MT, V_ENV>)
-          : cudaFuncGetAttributes(&a, mega_regen_kernel<V_IT, V_MT, V_ENV>);
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = out[5] = 0;
+  out[4] = pool;
+  if (L != nullptr) {
+    int sms = 0;
+    e = occupancy(kernel, L->bytes, out[3], sms);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    out[2] += L->bytes;
+    out[5] = L->chip;
+  }
   return 0;
+}
+
+// Kernel `which` (0: mega_sample_kernel, 1: mega_regen_kernel): out[0]
+// registers a thread, out[1] local bytes a thread (spills, and the walk's
+// stack where a pack's goes to local memory), out[4] lanes a pool, and for
+// the pack of `dims` (none: the static figures only) out[2] shared bytes a
+// block, out[3] blocks an SM holds, out[5] 1 when its layout is on chip
+// (geometry and walk stacks in shared memory)
+extern "C" int hc3_mega_attrs(int which, const int* dims, int* out) {
+  Layout L{};
+  L.chip = 1;
+  L.pool = N_KINDS <= 1 ? 0 : which == 0 ? SAMPLE_POOL : REGEN_POOL;
+  if (dims != nullptr)
+    L = which == 0 ? sample_layout(dims) : regen_layout(dims);
+  const Layout* lp = dims != nullptr ? &L : nullptr;
+  if (which == 0)
+    return L.chip
+               ? attrs_of(mega_sample_kernel<V_IT, V_MT, V_ENV, true>, lp,
+                          L.pool, out)
+               : attrs_of(mega_sample_kernel<V_IT, V_MT, V_ENV, false>, lp,
+                          L.pool, out);
+  return L.chip
+             ? attrs_of(mega_regen_kernel<V_IT, V_MT, V_ENV, true>, lp,
+                        L.pool, out)
+             : attrs_of(mega_regen_kernel<V_IT, V_MT, V_ENV, false>, lp,
+                        L.pool, out);
 }

@@ -1743,11 +1743,11 @@ def load_library(defines=(), source=_CU_SRC):
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hc3_mega_sample.restype = i
-    lib.hc3_mega_sample.argtypes = [p, i, i, i, p, p, i, i, p, p, p]
+    lib.hc3_mega_sample.argtypes = [p, p, p, p, i, i, p, p, p]
     lib.hc3_mega_regen.restype = i
-    lib.hc3_mega_regen.argtypes = [p, i, i, i, p, p, p, i, i, i, i, p, p, p]
+    lib.hc3_mega_regen.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p]
     lib.hc3_mega_attrs.restype = i
-    lib.hc3_mega_attrs.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.hc3_mega_attrs.argtypes = [i, p, ctypes.POINTER(ctypes.c_int)]
     if 'HC3_COUNT' in defines:
         lib.hc3_mega_counts_reset.restype = i
         lib.hc3_mega_counts_reset.argtypes = []
@@ -1776,26 +1776,46 @@ def kernel_library(variant=DEFAULT_VARIANT):
     return _LIBS[variant]
 
 
-def kernel_attrs(lib=None) -> dict:
-    """Registers per thread and local (stack and spill) bytes of both
-    kernels, as the loaded library (the default variant's by default)
-    reports them."""
+def kernel_attrs(lib=None, pk: MegaPack = None) -> dict:
+    """Registers per thread, local bytes per thread (spills, and the
+    walk's stack when a pack's goes to local memory), shared bytes per
+    block and lanes a pool (0: one lane a thread) of both kernels, as the
+    loaded library (the default variant's by default) reports them; for a
+    pack ``pk`` also what its launch takes: shared bytes per block at its
+    layout, blocks an SM holds, and the layout (``'chip'``: its geometry
+    and walk stacks in shared memory; ``'device'``: the geometry in device
+    memory, the stacks local)."""
     if lib is None:
         lib = kernel_library()
+    dims = None if pk is None else _dims(pk)
     out = {}
     for k, name in enumerate(('mega_sample_kernel', 'mega_regen_kernel')):
-        v = (ctypes.c_int * 2)()
-        TST.launch_checked(name, lib.hc3_mega_attrs(k, v))
-        out[name] = dict(registers=v[0], local_bytes=v[1])
+        v = (ctypes.c_int * 6)()
+        TST.launch_checked(name, lib.hc3_mega_attrs(k, dims, v))
+        out[name] = dict(registers=v[0], local_bytes=v[1], shared_bytes=v[2],
+                         pool=v[4])
+        if pk is not None:
+            out[name].update(blocks_per_sm=v[3],
+                             layout='chip' if v[5] else 'device')
     return out
+
+
+def _dims(pk: MegaPack):
+    """The sizes the C entry points lay a block's shared memory out by:
+    the walk's stack need, texels, textured, wide nodes, real
+    triangles."""
+    w = pk.wide
+    return (ctypes.c_int * 5)(
+        w.stack, pk.texels.shape[0], int(not pk.tex_const), w.nodes.shape[0],
+        w.rows.shape[0])
 
 
 def _device_args(name, pk: MegaPack, xy, dev):
     """The pack's tables as the C entry points take them (an array of
     pointers; a spectral pack's also holds its SPD values, their row
-    offsets and the CIE curves), after the checks: every table on the
-    lanes' card, contiguous and of the kernel's dtype, and the wide table
-    present with a stack the kernel provides."""
+    offsets and the CIE curves) and their sizes (``_dims``), after the
+    checks: every table on the lanes' card, contiguous and of the kernel's
+    dtype, and the wide table present with a stack the kernel provides."""
     if pk.wide is None:
         raise ValueError(f'{name}: a pack on the card needs its wide table '
                          '(pack(), or pack_from_numpy with the soup)')
@@ -1821,7 +1841,8 @@ def _device_args(name, pk: MegaPack, xy, dev):
                          f'{LF_NROWS} columns')
     if xy.dim() != 2 or xy.shape[0] != 2:
         raise ValueError(f'{name}: xy must be [2, N], got {tuple(xy.shape)}')
-    return (ctypes.c_void_p * len(tabs))(*(t.data_ptr() for t in tabs))
+    return ((ctypes.c_void_p * len(tabs))(*(t.data_ptr() for t in tabs)),
+            _dims(pk))
 
 
 def _u32_rows(name, su, rows, n, dev):
@@ -1842,16 +1863,16 @@ def sample_pass(pk: MegaPack, xy, su, depth: int,
     if dev.type != 'cuda':
         raise ValueError(f'sample_pass: unsupported device {dev}')
     lib = kernel_library(variant_of(pk, integrator))
-    tables = _device_args('sample_pass', pk, xy, dev)
+    tables, dims = _device_args('sample_pass', pk, xy, dev)
     n = xy.shape[1]
     su_in = _u32_rows('sample_pass', su, 2, n, dev)
     contrib = torch.empty((4, n), dtype=torch.float32, device=dev)
     su_out = torch.empty((3, n), dtype=torch.int64, device=dev)
     if n > 0:
         rc = lib.hc3_mega_sample(
-            tables, pk.wide.stack, pk.texels.shape[0], int(not pk.tex_const),
-            xy.data_ptr(), su_in.data_ptr(), depth, n, contrib.data_ptr(),
-            su_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            tables, dims, xy.data_ptr(), su_in.data_ptr(), depth, n,
+            contrib.data_ptr(), su_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         TST.launch_checked('sample_pass', rc)
         sample_pass.launches += 1
     return contrib, su_out
@@ -1871,7 +1892,7 @@ def regen_pass(pk: MegaPack, xy, sf, su, k: int, depth: int,
     if dev.type != 'cuda':
         raise ValueError(f'regen_pass: unsupported device {dev}')
     lib = kernel_library(variant_of(pk, integrator))
-    tables = _device_args('regen_pass', pk, xy, dev)
+    tables, dims = _device_args('regen_pass', pk, xy, dev)
     n = xy.shape[1]
     su_in = _u32_rows('regen_pass', su, 2 if first else RU_NROWS, n, dev)
     rows = rf_nrows(pk.spectral)
@@ -1886,9 +1907,8 @@ def regen_pass(pk: MegaPack, xy, sf, su, k: int, depth: int,
     su_out = torch.empty((RU_NROWS, n), dtype=torch.int64, device=dev)
     if n > 0 and k > 0:
         rc = lib.hc3_mega_regen(
-            tables, pk.wide.stack, pk.texels.shape[0], int(not pk.tex_const),
-            xy.data_ptr(), sf_in.data_ptr(), su_in.data_ptr(), int(first), k,
-            depth, n, sf_out.data_ptr(), su_out.data_ptr(),
+            tables, dims, xy.data_ptr(), sf_in.data_ptr(), su_in.data_ptr(),
+            int(first), k, depth, n, sf_out.data_ptr(), su_out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         TST.launch_checked('regen_pass', rc)
         regen_pass.launches += 1

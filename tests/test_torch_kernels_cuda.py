@@ -28,7 +28,12 @@ on every lane (its Moller-Trumbore test rounds op by op, as the plain
 version's): the camera and random rays, and the pass's camera, shadow and
 first-bounce queries; and that scene's pass on the card against the
 CPU's.  K1's spectral variant (``-DHC3_SPECTRAL=1``) on the spectral box,
-both entry points, every lane, for each integrator.  The feature box
+both entry points, every lane, for each integrator.  K1's pools and table
+layouts, for the GLTF, zoo and spectral variants: lane counts that are
+no multiple of a pool or a block, a ``first`` launch alone and single
+iterations, a frame whose camera rays all miss, the geometry in shared
+memory (the boxes) and in device memory (the boxes with their walls cut
+into grids).  The feature box
 (tests/zoo_scenes.py ``write_feature_box``: spot and IES lights, normal
 maps, slot-2/3 maps, the camera-back texture) for each camera: K5 on its
 pass's queries, every lane; the lens stack's failed rays (started at
@@ -948,11 +953,12 @@ def test_loaded_library_matches_plain_and_build(cuda, name, tmp_path):
 
 # ---- the material zoo (tests/zoo_scenes.py) ------------------------------------
 
-def _zoo_box_on(cuda, tmp_path, width=128, height=96, depth=6):
+def _zoo_box_on(cuda, tmp_path, width=128, height=96, depth=6,
+                wall_subdiv=1):
     import zoo_scenes
     from hydracore3_torch.scene import build as B
     scene, meta = B.load_scene(zoo_scenes.write_zoo_box(
-        str(tmp_path), width, height, depth), device=cuda)
+        str(tmp_path), width, height, depth, wall_subdiv), device=cuda)
     pk = TMK.pack(scene, meta)
     xy, su = TMK.lane_setup(meta, cuda)
     return pk, xy, su, depth
@@ -1020,6 +1026,145 @@ def test_mega_spectral_kernels_match_plain(cuda, tmp_path, name, regen):
         assert torch.isfinite(k[0]).all()
     close, equal, err = TMK.lanes_agree(k, p, rows)
     assert close == 1.0 and equal == 1.0, (close, equal, err)
+
+
+# ---- K1's pools, its table layouts and its edge cases, per variant -----------
+
+K1_CASES = [('box', 'mispt')] + [(sc, n) for sc in ('zoo', 'spectral')
+                                 for n in ('naivept', 'shadowpt', 'mispt')]
+
+
+def _k1_scene(cuda, tmp_path, scene, width=128, height=96, wall_subdiv=1):
+    """(pack, xy, su, depth) of the textured box (the GLTF variant), the
+    zoo box or the spectral box, each with its walls cut into grids of
+    ``wall_subdiv`` quads a side."""
+    if scene == 'box':
+        return _box_on(cuda, width, height, 6, wall_subdiv)
+    if scene == 'zoo':
+        return _zoo_box_on(cuda, tmp_path, width, height, 6, wall_subdiv)
+    import zoo_scenes
+    from hydracore3_torch.scene import build as B
+    sc, meta = B.load_scene(zoo_scenes.write_spectral_box(
+        str(tmp_path), width, height, 6, wall_subdiv=wall_subdiv),
+        spectral_mode=True, device=cuda)
+    pk = TMK.pack(sc, meta)
+    xy, su = TMK.lane_setup(meta, cuda)
+    return pk, xy, su, 6
+
+
+def _every(shares, n):
+    """(close, equal, max|d|) of ``lanes_agree`` held on all ``n`` lanes (a
+    share is a mean that the card rounds: 123 of 123 may read 0.99999994)."""
+    close, equal, _ = shares
+    return round(close * n) == n and round(equal * n) == n
+
+
+def _k1_both(pk, xy, su, depth, itype, k=16):
+    """Both entry points against the plain version on every lane: the fixed
+    chain, rfirst with k - 1 rmid iterations, then k more."""
+    k_f = TMK.sample_pass(pk, xy, su, depth, itype)
+    agree = [TMK.lanes_agree(k_f, TMK.sample_pass_plain(pk, xy, su, depth,
+                                                        itype), 3)]
+    sf, su2 = TMK.regen_pass(pk, xy, None, su, k, depth, first=True,
+                             integrator=itype)
+    sf_p, su_p = TMK.regen_iters_plain(pk, xy, None, su, k, depth,
+                                       first=True, integrator=itype)
+    agree.append(TMK.lanes_agree((sf, su2), (sf_p, su_p), TMK.RU_NROWS))
+    agree.append(TMK.lanes_agree(
+        TMK.regen_pass(pk, xy, sf, su2, k, depth, integrator=itype),
+        TMK.regen_iters_plain(pk, xy, sf_p, su_p, k, depth,
+                              integrator=itype), TMK.RU_NROWS))
+    return agree
+
+
+@pytest.mark.parametrize('scene,name', K1_CASES)
+def test_mega_kernels_on_a_ragged_lane_count(cuda, tmp_path, scene, name):
+    """Lane counts that are no multiple of a pool or of a block (the last
+    pool ragged), and fewer lanes than one pool: both entry points equal
+    the plain version on every lane."""
+    pk, xy, su, depth = _k1_scene(cuda, tmp_path, scene)
+    itype = TMK.INTEGRATOR_BY_NAME[name]
+    # lanes a pool (one lane a thread, pool 0: a block's)
+    pool = TMK.kernel_attrs(TMK.kernel_library(TMK.variant_of(pk, itype)),
+                            pk)['mega_regen_kernel']['pool'] or 128
+    for m in (3 * pool + 37, pool - 5, 1):
+        assert m % 128 and m % pool
+        xs, ss = xy[:, :m].contiguous(), su[:, :m].contiguous()
+        for agree in _k1_both(pk, xs, ss, depth, itype):
+            assert _every(agree, m), (m, agree)
+
+
+@pytest.mark.parametrize('scene,name', K1_CASES)
+def test_mega_regen_one_iteration_and_first_alone(cuda, tmp_path, scene,
+                                                  name):
+    """A ``first`` launch alone (rfirst, k = 1), then single iterations:
+    every lane's state equals the plain version's after each launch."""
+    pk, xy, su, depth = _k1_scene(cuda, tmp_path, scene)
+    itype = TMK.INTEGRATOR_BY_NAME[name]
+    sf, su2 = TMK.regen_pass(pk, xy, None, su, 1, depth, first=True,
+                             integrator=itype)
+    sf_p, su_p = TMK.regen_iters_plain(pk, xy, None, su, 1, depth,
+                                       first=True, integrator=itype)
+    for step in range(4):
+        agree = TMK.lanes_agree((sf, su2), (sf_p, su_p), TMK.RU_NROWS)
+        assert _every(agree, xy.shape[1]), (step, agree)
+        sf, su2 = TMK.regen_pass(pk, xy, sf, su2, 1, depth,
+                                 integrator=itype)
+        sf_p, su_p = TMK.regen_iters_plain(pk, xy, sf_p, su_p, 1, depth,
+                                           integrator=itype)
+    assert (su2[TMK.RU_NDONE] > 0).any()
+
+
+def _camera_away(pk):
+    """The pack with its camera turned around (the world-view rotation
+    negated): every camera ray leaves the scene."""
+    c = pk.consts.clone()
+    for r in range(3):
+        c[TMK.CN_WVI + 4 * r:TMK.CN_WVI + 4 * r + 3] *= -1
+    return dataclasses.replace(pk, consts=c)
+
+
+@pytest.mark.parametrize('scene,name', K1_CASES)
+def test_mega_kernels_when_every_camera_ray_misses(cuda, tmp_path, scene,
+                                                   name):
+    """A frame whose camera rays all miss: every lane restarts on every
+    regen iteration (a pool's shade lists stay empty, its restart list
+    full) and the fixed chain ends at its first bounce; both entry points
+    equal the plain version on every lane."""
+    pk, xy, su, depth = _k1_scene(cuda, tmp_path, scene)
+    pk = _camera_away(pk)
+    itype = TMK.INTEGRATOR_BY_NAME[name]
+    _, su_p = TMK.regen_iters_plain(pk, xy, None, su, 1, depth, first=True,
+                                    integrator=itype)
+    assert ((su_p[2] & 0x40000000) != 0).all()      # FLAG_OUT_OF_SCENE
+    for agree in _k1_both(pk, xy, su, depth, itype):
+        assert _every(agree, xy.shape[1]), agree
+
+
+@pytest.mark.parametrize('scene,subdiv', [(sc, sub) for sc in
+                                          ('box', 'zoo', 'spectral')
+                                          for sub in (1, 20)])
+def test_mega_table_layouts(cuda, tmp_path, scene, subdiv):
+    """The layout is chosen by the pack's bytes: the box's, the zoo box's
+    and the spectral box's geometry and walk stacks sit in shared memory;
+    with their walls cut into 20 x 20 grids (over 4,000 triangles, a stack
+    of about 19 entries) in device and local memory.  The ``mispt``
+    variant's both entry points, one lane a thread (the box) or pooled
+    (the zoo and spectral boxes), equal the plain version on every lane
+    in either."""
+    if subdiv == 1:
+        pk, xy, su, depth = _k1_scene(cuda, tmp_path, scene)
+    else:
+        pk, xy, su, depth = _k1_scene(cuda, tmp_path, scene, 64, 48, subdiv)
+    itype = TMK.INTEGRATOR_MIS_PT
+    attrs = TMK.kernel_attrs(TMK.kernel_library(TMK.variant_of(pk, itype)),
+                             pk)
+    want = 'device' if subdiv > 1 else 'chip'
+    for a in attrs.values():
+        assert a['layout'] == want and a['blocks_per_sm'] >= 1, attrs
+        assert (a['pool'] > 0) == (scene != 'box'), attrs
+    for agree in _k1_both(pk, xy, su, depth, itype):
+        assert _every(agree, xy.shape[1]), agree
 
 
 def test_zoo_city_refracted_lanes_match_plain(cuda, tmp_path):

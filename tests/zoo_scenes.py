@@ -87,11 +87,13 @@ def sky_texture():
     return (np.clip(sky, 0.0, 1.0) * 255).astype(np.uint8)
 
 
-def zoo_box_desc(width: int = 64, height: int = 48, depth: int = 4
-                 ) -> B.SceneDesc:
+def zoo_box_desc(width: int = 64, height: int = 48, depth: int = 4,
+                 wall_subdiv: int = 1) -> B.SceneDesc:
     """The box with the zoo's placeholder materials, the second area light
-    (a disc after patching) and the sky."""
-    sd = synth.build_box(width, height, depth, textured=True)
+    (a disc after patching) and the sky; ``wall_subdiv`` as
+    ``synth.build_box``'s."""
+    sd = synth.build_box(width, height, depth, textured=True,
+                         wall_subdiv=wall_subdiv)
     placements = {
         'zoo_rough': _quad((-3.5, 0, -2.5), (-1.5, 0, -2.5), (-1.5, 2, -2.0),
                            (-3.5, 2, -2.0)),
@@ -156,9 +158,10 @@ def _rewrite(path: str, fn):
 
 
 def write_zoo_box(out_dir: str, width: int = 64, height: int = 48,
-                  depth: int = 4) -> str:
+                  depth: int = 4, wall_subdiv: int = 1) -> str:
     """The zoo box library in ``out_dir``; returns the XML's path."""
-    path = api.write_library(zoo_box_desc(width, height, depth), out_dir)
+    path = api.write_library(zoo_box_desc(width, height, depth, wall_subdiv),
+                             out_dir)
     return _rewrite(path, lambda t: patch_disc(patch_materials(
         t, ZOO_MATERIALS)))
 
@@ -484,12 +487,14 @@ def spectral_materials(names) -> dict:
 
 
 def spectral_box_desc(width: int = 64, height: int = 48, depth: int = 4,
-                      k1: bool = True) -> B.SceneDesc:
+                      k1: bool = True, wall_subdiv: int = 1) -> B.SceneDesc:
     """The zoo box's shell with the spectral boxes' placeholder materials.
     ``k1``: what the megakernel's spectral gate admits (a flat sky);
     else also a dielectric and a glass cube, a spectral-texture diffuse,
-    two thin films, a blend and a float lat-long sky."""
-    sd = synth.build_box(width, height, depth, textured=True)
+    two thin films, a blend and a float lat-long sky.  ``wall_subdiv`` as
+    ``synth.build_box``'s."""
+    sd = synth.build_box(width, height, depth, textured=True,
+                         wall_subdiv=wall_subdiv)
     placements = {
         'spec_rough': _quad_uv((-3.5, 0, -2.5), (-1.5, 0, -2.5),
                                (-1.5, 2, -2.0), (-3.5, 2, -2.0)),
@@ -579,7 +584,8 @@ def _light_spectrum(text, light, spectrum):
 
 
 def write_spectral_box(out_dir: str, width: int = 64, height: int = 48,
-                       depth: int = 4, k1: bool = True) -> str:
+                       depth: int = 4, k1: bool = True,
+                       wall_subdiv: int = 1) -> str:
     """A spectral box library in ``out_dir`` for ``load_scene(...,
     spectral_mode=True)``; returns the XML's path.
 
@@ -596,9 +602,10 @@ def write_spectral_box(out_dir: str, width: int = 64, height: int = 48,
     thickness-mapped film (the direct Airy path), a blend of an SPD
     diffuse and a gold conductor, a float lat-long sky with the sky SPD
     and XYZ camera-response spectra.  The SPD files are written beside
-    the library from SPECTRA's formulas."""
-    path = api.write_library(spectral_box_desc(width, height, depth, k1),
-                             out_dir)
+    the library from SPECTRA's formulas.  ``wall_subdiv`` as
+    ``synth.build_box``'s."""
+    path = api.write_library(spectral_box_desc(width, height, depth, k1,
+                                               wall_subdiv), out_dir)
     names = K1_SPECTRA if k1 else BOX2_SPECTRA
 
     def patch(text):
