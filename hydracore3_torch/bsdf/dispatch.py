@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.lmath import cross, dot, mul_rows_2x4, normalize
+from ..utils.spans import span
 from ..ops import rng as RNG
 from ..ops import spectrum as SPEC
 from ..ops import texture as TEX
@@ -61,16 +62,17 @@ def gather_material(scene, mat_id):
     past the table clamp to its last row, as the JAX package's gathers do:
     a dead lane's flags keep the event bits of its last sample in the
     material-id field, and its rows are read and discarded."""
-    mat_id = torch.clamp(mat_id, 0, scene.mat_mtype.shape[0] - 1)
-    return dict(id=mat_id, mtype=scene.mat_mtype[mat_id],
-                cflags=scene.mat_cflags[mat_id],
-                nonlinear=scene.mat_nonlinear[mat_id],
-                texid=scene.mat_texid[mat_id],
-                datai=scene.mat_datai[mat_id],
-                colors=scene.mat_colors[mat_id],
-                row0=scene.mat_row0[mat_id],
-                row1=scene.mat_row1[mat_id],
-                data=scene.mat_data[mat_id])
+    with span('hc3.gather.material'):
+        mat_id = torch.clamp(mat_id, 0, scene.mat_mtype.shape[0] - 1)
+        return dict(id=mat_id, mtype=scene.mat_mtype[mat_id],
+                    cflags=scene.mat_cflags[mat_id],
+                    nonlinear=scene.mat_nonlinear[mat_id],
+                    texid=scene.mat_texid[mat_id],
+                    datai=scene.mat_datai[mat_id],
+                    colors=scene.mat_colors[mat_id],
+                    row0=scene.mat_row0[mat_id],
+                    row1=scene.mat_row1[mat_id],
+                    data=scene.mat_data[mat_id])
 
 
 def _clamp_tex(scene, texid):

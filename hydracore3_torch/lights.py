@@ -22,6 +22,7 @@ from .utils.lmath import (M_PI, dot, mul3x3, mul4x4_vec, epsilon_of_pos,
                           tex_coord_2d_to_sphere_map)
 from .ops import spectrum as SPEC
 from .ops import texture as TEX
+from .utils.spans import span
 from .scene.build import (LIGHT_GEOM_ENV, LIGHT_GEOM_SPHERE, LIGHT_GEOM_POINT,
                           LIGHT_GEOM_DISC, LIGHT_GEOM_DIRECT,
                           LIGHT_DIST_LAMBERT, LIGHT_DIST_OMNI,
@@ -34,12 +35,13 @@ def gather_light(scene, light_id, extra=()):
     IES and spot columns (``ies_matrix``, ``flags``, ``cos1``, ``cos2``)
     only where ``extra`` names them: the scenes without those lights do
     not pay for their gathers."""
-    lid = torch.clamp(light_id, 0, scene.light_pos.shape[0] - 1)
-    return {k: getattr(scene, 'light_' + k)[lid] for k in (
-        'pos', 'norm', 'intensity', 'matrix', 'sam_row0', 'sam_row1',
-        'sam_row0_inv', 'sam_row1_inv', 'size', 'pdf_a', 'mult', 'geom_type',
-        'dist_type', 'pdf_table_offset', 'pdf_table_size_x',
-        'pdf_table_size_y', 'tex_id', 'ies_id') + tuple(extra)}
+    with span('hc3.gather.light'):
+        lid = torch.clamp(light_id, 0, scene.light_pos.shape[0] - 1)
+        return {k: getattr(scene, 'light_' + k)[lid] for k in (
+            'pos', 'norm', 'intensity', 'matrix', 'sam_row0', 'sam_row1',
+            'sam_row0_inv', 'sam_row1_inv', 'size', 'pdf_a', 'mult',
+            'geom_type', 'dist_type', 'pdf_table_offset', 'pdf_table_size_x',
+            'pdf_table_size_y', 'tex_id', 'ies_id') + tuple(extra)}
 
 
 def _sample_map_2d(scene, rands3, table_offset, size_x, size_y):

@@ -53,6 +53,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import lmath as LM
+from ..utils.spans import span
 from ..ops import qmc as QMC
 from ..ops import rng as RNG
 from ..ops import spectrum as SPEC
@@ -119,15 +120,17 @@ class RayState(NamedTuple):
 
 def _permute_state(state: RayState, orig, perm):
     """Apply a row permutation to the whole ray state and ``orig``."""
-    return RayState(*(None if a is None else a[perm] for a in state)), \
-        orig[perm]
+    with span('hc3.gather.permute'):
+        return RayState(*(None if a is None else a[perm] for a in state)), \
+            orig[perm]
 
 
 def _grid_cell_key(grid, pos, d):
     """Sort key (origin grid cell major, quantized direction minor)."""
-    lo = torch.tensor(grid.lo, dtype=torch.float32, device=pos.device)
-    h = torch.tensor(grid.h, dtype=torch.float32, device=pos.device)
-    dims = torch.tensor(grid.dims, dtype=torch.int64, device=pos.device)
+    with span('hc3.sync.grid_key'):
+        lo = torch.tensor(grid.lo, dtype=torch.float32, device=pos.device)
+        h = torch.tensor(grid.h, dtype=torch.float32, device=pos.device)
+        dims = torch.tensor(grid.dims, dtype=torch.int64, device=pos.device)
     q = torch.floor((pos - lo) / h).to(torch.int64)
     q = torch.minimum(torch.clamp(q, min=0), dims - 1)
     d1, d2 = grid.dims[1], grid.dims[2]
@@ -377,7 +380,8 @@ def nearest_hit(scene, ray_pos, ray_dir, t_min, t_max):
     pt, ptri, pu, pv, un = TDD.intersect_march(
         scene.st_grid, scene.st_woop, ray_pos, ray_dir, t_min, t_max,
         with_unresolved=True, wide=scene.st_wide)
-    sel = torch.nonzero(un).squeeze(1)
+    with span('hc3.sync.unresolved'):
+        sel = torch.nonzero(un).squeeze(1)
     if sel.numel() > 0:
         ft, ftri, fu, fv = TST.intersect_stream(
             scene.st_nodes_f, scene.st_nodes_i, scene.st_woop, ray_pos[sel],
@@ -901,26 +905,14 @@ def count_rays_pass(scene, meta, rng_state, pixel_ids,
     ``kernel_sample_light_source`` traces (live lanes in the light's
     illumination); the naive integrator runs one bounce more and no
     shadow ray.  The pass runs as the JAX one does: unsorted, through the
-    scene class's kernels.  Returns (n_nearest, n_shadow) as ints."""
-    state = kernel_init_eye_ray(scene, meta, rng_state, pixel_ids)
-    naive = integrator_type == INTEGRATOR_STUPID_PT
-    n_near = n_shadow = 0
-    for b in range(meta.trace_depth + int(naive)):
-        n_near += (~_is_dead(state.flags)).sum()
-        state = kernel_ray_trace(scene, meta, state, b)
-        ctx = None if meta.has_blend else MAT.make_shading_ctx(
-            scene, meta, _extract_mat_id(state.flags), state.hit_norm,
-            state.hit_tang, state.hit_uv)
-        if naive:
-            shade = torch.zeros_like(state.accum_color)
-        else:
-            shade, rng2, n_tr = kernel_sample_light_source(
-                scene, meta, state, ctx, integrator_type, return_count=True)
-            n_shadow += n_tr
-            state = state._replace(rng=rng2)
-        state = kernel_next_bounce(scene, meta, state, b, shade, ctx,
-                                   integrator_type)
-    return int(n_near), int(n_shadow)
+    scene class's kernels (``_bounces``' counter).  Returns (n_nearest,
+    n_shadow) as ints."""
+    rays = {k: torch.zeros((), dtype=torch.int64, device=pixel_ids.device)
+            for k in ('nearest', 'shadow')}
+    _bounces(scene, meta,
+             kernel_init_eye_ray(scene, meta, rng_state, pixel_ids), None,
+             integrator_type, FB_COLOR, None, False, rays)
+    return int(rays['nearest']), int(rays['shadow'])
 
 
 def trace_pass(scene, meta, rng_state, pixel_ids,
@@ -960,41 +952,70 @@ def trace_pass_state(scene, meta, rng_state, pixel_ids,
     if render_layer not in (FB_COLOR, FB_DIRECT, FB_INDIRECT):
         raise NotImplementedError(f'render layer {render_layer}')
     check_scene(meta)
-    naive = integrator_type == INTEGRATOR_STUPID_PT
-    mlt = qmc_ctx is not None and 'mlt_rands' in qmc_ctx
-    state = (kernel_init_eye_ray(scene, meta, rng_state, pixel_ids, qmc_ctx)
-             if input_state is None else input_state)
-    orig = torch.arange(pixel_ids.shape[0], device=pixel_ids.device)
     # streamed and two-level scenes sort live rays into coherent order
     # before every secondary trace (by grid cell, or by Morton code where
     # there is no grid); mid-size scenes trace unsorted, and so does every
     # scene under QMC or MLT or from input rays
     sort_rays = ((meta.use_stream or meta.use_stream_tlas) and qmc_ctx is None
                  and input_state is None)
+    # the first state goes to the loop unnamed here, so that it is freed
+    # at the first bounce
+    state, orig = _bounces(
+        scene, meta,
+        (kernel_init_eye_ray(scene, meta, rng_state, pixel_ids, qmc_ctx)
+         if input_state is None else input_state),
+        torch.arange(pixel_ids.shape[0], device=pixel_ids.device),
+        integrator_type, render_layer, qmc_ctx, sort_rays)
+    with span('hc3.pass.env'):
+        # restore positional order: the inverse of the composed sorts
+        inv = torch.empty_like(orig)
+        inv[orig] = torch.arange(orig.shape[0], device=orig.device)
+        state, _ = _permute_state(state, orig, inv)
+        return kernel_hit_environment(
+            scene, meta, state, integrator_type,
+            pixel_ids if state.pixel is None else state.pixel)
+
+
+def _bounces(scene, meta, state: RayState, orig, integrator_type: int,
+             render_layer: int, qmc_ctx, sort_rays: bool, rays=None):
+    """``trace_pass_state``'s bounce loop: ``trace_depth`` x (sort ->
+    nearest hit -> shading context -> NEE -> next bounce), one bounce
+    more and no NEE for the naive integrator.  ``orig`` (None unsorted)
+    tracks each row's original position through the sorts; ``rays``
+    (``count_rays_pass``' dict(nearest=, shadow=) of device scalars), where
+    given, gains the live lanes before each nearest-hit trace and NEE's
+    shadow rays.  Returns (state, orig)."""
+    naive = integrator_type == INTEGRATOR_STUPID_PT
+    mlt = qmc_ctx is not None and 'mlt_rands' in qmc_ctx
     for b in range(meta.trace_depth + int(naive)):
         # QMC feeds bounce 0, MLT every bounce at its offset
         bctx = (dict(qmc_ctx, bounce=b) if mlt else
                 qmc_ctx if b == 0 else None)
         if sort_rays and b > 0:
-            state, orig = _sort_rays_for_trace(state, orig, scene.st_grid)
-        state = kernel_ray_trace(scene, meta, state, b)
+            with span('hc3.bounce.sort'):
+                state, orig = _sort_rays_for_trace(state, orig,
+                                                   scene.st_grid)
+        with span('hc3.bounce.trace'):
+            if rays is not None:
+                rays['nearest'] += (~_is_dead(state.flags)).sum()
+            state = kernel_ray_trace(scene, meta, state, b)
         # one shared shading context a bounce, except with a blend (whose
         # descent picks the leaf per draw)
-        ctx = None if meta.has_blend else MAT.make_shading_ctx(
-            scene, meta, _extract_mat_id(state.flags), state.hit_norm,
-            state.hit_tang, state.hit_uv)
+        with span('hc3.bounce.shade_ctx'):
+            ctx = None if meta.has_blend else MAT.make_shading_ctx(
+                scene, meta, _extract_mat_id(state.flags), state.hit_norm,
+                state.hit_tang, state.hit_uv)
         if naive:
             shade = torch.zeros_like(state.accum_color)
         else:
-            shade, rng2 = kernel_sample_light_source(
-                scene, meta, state, ctx, integrator_type, render_layer, bctx)
+            with span('hc3.bounce.nee'):
+                shade, rng2, *n_tr = kernel_sample_light_source(
+                    scene, meta, state, ctx, integrator_type, render_layer,
+                    bctx, return_count=rays is not None)
+            if rays is not None:
+                rays['shadow'] += n_tr[0]
             state = state._replace(rng=rng2)
-        state = kernel_next_bounce(scene, meta, state, b, shade, ctx,
-                                   integrator_type, render_layer, bctx)
-    # restore positional order: the inverse of the composed sorts
-    inv = torch.empty_like(orig)
-    inv[orig] = torch.arange(orig.shape[0], device=orig.device)
-    state, _ = _permute_state(state, orig, inv)
-    return kernel_hit_environment(
-        scene, meta, state, integrator_type,
-        pixel_ids if state.pixel is None else state.pixel)
+        with span('hc3.bounce.next'):
+            state = kernel_next_bounce(scene, meta, state, b, shade, ctx,
+                                       integrator_type, render_layer, bctx)
+    return state, orig

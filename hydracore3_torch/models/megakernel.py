@@ -86,6 +86,7 @@ from ..scene.build import (MAT_TYPE_GLTF, MAT_TYPE_DIFFUSE,
                            LIGHT_DIST_LAMBERT, LIGHT_DIST_OMNI, INVALID_ID,
                            SMALL_SCENE_TRIS)
 from ..utils.native import PKG_DIR, build_shared_library
+from ..utils.spans import span
 from .integrator_pt import (INTEGRATOR_STUPID_PT, INTEGRATOR_SHADOW_PT,
                            INTEGRATOR_MIS_PT, INTEGRATOR_BY_NAME)
 
@@ -1966,9 +1967,13 @@ def render(scene, meta, spp: int = None, integrator: str = 'mispt',
     persistent-lane pipeline with the JAX render's host stop rule
     (:2795-2820) and normalizes each pixel by its completed-sample count
     (a mean of at least ``spp``).  Nothing is scrubbed: ``return_timing``
-    also returns dict(total_s, spp, rays, nonfinite[, samples]), where
-    ``nonfinite`` counts lane samples with a non-finite contribution (in
-    regen mode: lanes whose accumulated sum is non-finite)."""
+    also returns dict(total_s, spp, samples, launches, nonfinite[, iters]):
+    the samples the frame completed, the kernel launches it made (the
+    ``launches`` of ``sample_pass`` or ``regen_pass``; none on the CPU;
+    left out where ``regen_pass`` names a stand-in without a counter),
+    the lane samples with a non-finite contribution (in regen mode: lanes
+    whose accumulated sum is non-finite) and, in regen mode, the
+    persistent-lane iterations summed over the tiles."""
     reason = why_unsupported(scene, meta, integrator)
     if reason is not None:
         raise NotImplementedError(f'megakernel: {reason}')
@@ -1977,26 +1982,33 @@ def render(scene, meta, spp: int = None, integrator: str = 'mispt',
     W, H = meta.width, meta.height
     N = W * H
     depth = meta.trace_depth
-    pk = pack(scene, meta)
-    xy, su0 = lane_setup(meta, pk.consts.device)
+    with span('hc3.mk.pack'):
+        pk = pack(scene, meta)
+    with span('hc3.mk.lane_setup'):
+        xy, su0 = lane_setup(meta, pk.consts.device)
     Np = xy.shape[1]
     tile = min(1 << 20, Np)
     tiles = [(s, min(s + tile, Np)) for s in range(0, Np, tile)]
     xy_t = [xy[:, s:e].contiguous() for s, e in tiles]
     nonfinite = torch.zeros((), dtype=torch.int64, device=xy.device)
     t0 = time.perf_counter()
-    timing = dict(spp=spp, rays=N * spp)
+    timing = dict(spp=spp)
     if regen:
+        # a stand-in for the wrapper without a counter (a planted fault)
+        # counts nothing, and the frame then reports no launches
+        launches0 = getattr(regen_pass, 'launches', None)
         n_bounce = n_bounces(depth, itype)
         kit = REGEN_ITERS
         img_parts, nd_parts = [], []
+        timing['iters'] = 0
         for i, (s, e) in enumerate(tiles):
             sf, su = regen_pass(pk, xy_t[i], None, su0[:, s:e], kit, depth,
                                 first=True, integrator=itype)
             iters = kit
             max_iters = spp * (n_bounce + 2) + kit  # the fixed chain's bound
             while iters < max_iters:
-                mean_done = float(su[RU_NDONE].to(torch.float32).mean())
+                with span('hc3.sync.stop_rule'):
+                    mean_done = float(su[RU_NDONE].to(torch.float32).mean())
                 if mean_done >= spp:
                     break
                 rate = max(mean_done / iters, 1.0 / (n_bounce + 2))
@@ -2005,14 +2017,20 @@ def render(scene, meta, spp: int = None, integrator: str = 'mispt',
                     sf, su = regen_pass(pk, xy_t[i], sf, su, kit, depth,
                                         integrator=itype)
                 iters += rem * kit
-            img4, nd = regen_finalize(pk, sf, su, itype)
+            timing['iters'] += iters
+            with span('hc3.mk.finalize'):
+                img4, nd = regen_finalize(pk, sf, su, itype)
             img_parts.append(img4)
             nd_parts.append(nd)
         flat = torch.cat(img_parts, dim=1)[:, :N]
         # a non-finite sample leaves its lane's sum non-finite
         nonfinite = (~torch.isfinite(flat)).any(0).sum()
-        timing['samples'] = int(torch.cat(nd_parts)[:N].sum())
+        with span('hc3.sync.samples'):
+            timing['samples'] = int(torch.cat(nd_parts)[:N].sum())
+        if launches0 is not None:
+            timing['launches'] = regen_pass.launches - launches0
     else:
+        launches0 = sample_pass.launches
         fb = [None] * len(tiles)
         su_t = [su0[:, s:e] for s, e in tiles]
         k = min(K_SAMPLES, spp)
@@ -2035,7 +2053,10 @@ def render(scene, meta, spp: int = None, integrator: str = 'mispt',
             if xy.device.type == 'cuda':
                 torch.cuda.synchronize(xy.device)
         flat = torch.cat(fb, dim=1)[:, :N] / float(spp)
-    img = flat.T.cpu().numpy().reshape(H, W, 4)
+        timing.update(samples=N * spp,
+                      launches=sample_pass.launches - launches0)
+    with span('hc3.sync.readback'):
+        img = flat.T.cpu().numpy().reshape(H, W, 4)
     timing.update(total_s=time.perf_counter() - t0, nonfinite=int(nonfinite))
     if return_timing:
         return img, timing

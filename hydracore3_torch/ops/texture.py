@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 FILTER_NEAREST = 0
 FILTER_LINEAR = 1
 
@@ -171,6 +173,11 @@ def sample(pool: TexturePool, tex_id, uv):
 
     Bilinear with half-texel centres (LiteImage), or nearest = int(u * w)
     for FILTER_NEAREST slots."""
+    with span('hc3.gather.texel'):
+        return _tap(pool, tex_id, uv)
+
+
+def _tap(pool: TexturePool, tex_id, uv):
     off = pool.offset[tex_id]
     w = pool.width[tex_id]
     h = pool.height[tex_id]

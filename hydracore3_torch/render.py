@@ -46,6 +46,7 @@ from .bsdf import common as C
 from .models import integrator_pt as IPT
 from .models import megakernel as MK
 from .models.integrator_pt import INTEGRATOR_BY_NAME
+from .utils.spans import span
 
 LAYER_BY_NAME = {'color': IPT.FB_COLOR, 'direct': IPT.FB_DIRECT,
                  'indirect': IPT.FB_INDIRECT}
@@ -107,11 +108,12 @@ def _one_sample(scene, meta, rng_state, pixel_ids, integrator_type,
     """One sample per pixel id; returns (contrib [N, channels], rng, the
     lanes' output pixel ids: ``pixel_ids``, or under a QMC or MLT context
     (``IPT.trace_pass_state``) the pixels the samples landed on)."""
-    st = IPT.trace_pass_state(scene, meta, rng_state, pixel_ids,
-                              integrator_type, render_layer, qmc_ctx)
-    return (contribution(scene, meta, st.accum_color, st.wavelengths,
-                         st.flags, channels), st.rng,
-            pixel_ids if st.pixel is None else st.pixel)
+    with span('hc3.pass'):
+        st = IPT.trace_pass_state(scene, meta, rng_state, pixel_ids,
+                                  integrator_type, render_layer, qmc_ctx)
+        return (contribution(scene, meta, st.accum_color, st.wavelengths,
+                             st.flags, channels), st.rng,
+                pixel_ids if st.pixel is None else st.pixel)
 
 
 def _check_args(integrator, layer):
@@ -185,44 +187,48 @@ def render_qmc(scene, meta, spp: int = None, integrator: str = 'mispt',
     contributions are scatter-added there (``index_add_``, the reference's
     atomics), so a pass draws ``n_tiles * tile`` samples over the whole
     frame.  The framebuffer is divided by ``spp``.  Returns float32 numpy
-    [H, W, channels]; with ``return_timing`` also dict(total_s, spp, rays,
-    nonfinite)."""
+    [H, W, channels]; with ``return_timing`` also dict(total_s, spp,
+    samples, nonfinite), whose ``samples`` are the ``n_tiles * tile * spp``
+    drawn."""
     _check_args(integrator, layer)
-    spp = spp or meta.spp
-    itype = INTEGRATOR_BY_NAME[integrator]
-    rlayer = LAYER_BY_NAME[layer]
-    dev = scene.proj_inv.device
-    W, H = meta.width, meta.height
-    N = W * H
-    spd_dim, mat_dim, lgt_dim = _qmc_dims(meta)
-    table = QMC.qmc_table(dev)
-    n_tiles = -(-N // tile_size)
-    tile = min(tile_size, N)
-    pixel_ids = torch.zeros(tile, dtype=torch.int64, device=dev)  # unused
-    lanes = torch.arange(tile, dtype=torch.int64, device=dev)
-    rngs = [RNG.gen_init(lanes + t * tile) for t in range(n_tiles)]
-    fb = torch.zeros((N, channels), dtype=torch.float32, device=dev)
-    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
-    t0 = time.perf_counter()
-    sample_base = 0
-    for p in range(spp):
-        for t in range(n_tiles):
-            ctx = dict(table=table, idx=lanes + sample_base, spd_dim=spd_dim,
-                       mat_dim=mat_dim, lgt_dim=lgt_dim)
-            contrib, rngs[t], out_px = _one_sample(
-                scene, meta, rngs[t], pixel_ids, itype, channels, rlayer, ctx)
-            fb.index_add_(0, out_px, contrib)
-            nonfinite += _nonfinite(contrib)
-            sample_base += tile
-        _progress(progress, p + 1, spp)
-    if progress:
-        print()
-    img = (fb.cpu().numpy() / np.float32(spp)).reshape(H, W, channels)
-    total = time.perf_counter() - t0
-    if return_timing:
-        return img, dict(total_s=total, spp=spp, rays=N * spp,
-                         nonfinite=int(nonfinite))
-    return img
+    with span('hc3.render'):
+        spp = spp or meta.spp
+        itype = INTEGRATOR_BY_NAME[integrator]
+        rlayer = LAYER_BY_NAME[layer]
+        dev = scene.proj_inv.device
+        W, H = meta.width, meta.height
+        N = W * H
+        spd_dim, mat_dim, lgt_dim = _qmc_dims(meta)
+        table = QMC.qmc_table(dev)
+        n_tiles = -(-N // tile_size)
+        tile = min(tile_size, N)
+        pixel_ids = torch.zeros(tile, dtype=torch.int64, device=dev)  # unused
+        lanes = torch.arange(tile, dtype=torch.int64, device=dev)
+        rngs = [RNG.gen_init(lanes + t * tile) for t in range(n_tiles)]
+        fb = torch.zeros((N, channels), dtype=torch.float32, device=dev)
+        nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        sample_base = 0
+        for p in range(spp):
+            for t in range(n_tiles):
+                ctx = dict(table=table, idx=lanes + sample_base,
+                           spd_dim=spd_dim, mat_dim=mat_dim, lgt_dim=lgt_dim)
+                contrib, rngs[t], out_px = _one_sample(
+                    scene, meta, rngs[t], pixel_ids, itype, channels, rlayer,
+                    ctx)
+                fb.index_add_(0, out_px, contrib)
+                nonfinite += _nonfinite(contrib)
+                sample_base += tile
+            _progress(progress, p + 1, spp)
+        if progress:
+            print()
+        with span('hc3.sync.readback'):
+            img = (fb.cpu().numpy() / np.float32(spp)).reshape(H, W, channels)
+        total = time.perf_counter() - t0
+        if return_timing:
+            return img, dict(total_s=total, spp=spp, samples=sample_base,
+                             nonfinite=int(nonfinite))
+        return img
 
 
 def _load_tiles(path, fb, rngs):
@@ -253,9 +259,10 @@ def render(scene, meta, spp: int = None, integrator: str = 'mispt',
 
     ``regen`` is the megakernel's (persistent lanes) and is ignored on
     the batched integrator's scenes, as the JAX router ignores it there.
-    With ``return_timing`` also returns dict(total_s, spp, rays,
-    nonfinite), ``nonfinite`` counting lane samples with a non-finite
-    contribution (nothing is scrubbed).
+    With ``return_timing`` also returns the timing dict: on the batched
+    route dict(total_s, spp, samples, nonfinite), ``samples`` being
+    W x H x spp, on the megakernel's ``MK.render``'s; ``nonfinite`` counts
+    lane samples with a non-finite contribution (nothing is scrubbed).
 
     With ``checkpoint_path`` and ``checkpoint_every=K`` the per-tile
     framebuffers, RNG rows and the samples done are saved every K samples
@@ -265,53 +272,56 @@ def render(scene, meta, spp: int = None, integrator: str = 'mispt',
     tiles, the last padded with lanes of pixel 0 and RNG rows 0, whose
     samples are dropped."""
     _check_args(integrator, layer)
-    ckpt = bool(checkpoint_path and checkpoint_every)
-    padded = ckpt or resume
-    if not padded and use_megakernel(scene, meta, integrator, channels,
-                                     layer):
-        return MK.render(scene, meta, spp=spp, integrator=integrator,
-                         regen=regen, return_timing=return_timing)
-    spp = spp or meta.spp
-    itype = INTEGRATOR_BY_NAME[integrator]
-    dev = scene.proj_inv.device
-    W, H = meta.width, meta.height
-    N = W * H
-    pixel_all = torch.arange(N, dtype=torch.int64, device=dev)
-    rng_all = RNG.gen_init(pixel_all)
-    if padded:
-        n_pad = -(-N // tile_size) * tile_size - N
-        pixel_all = torch.cat([pixel_all, torch.zeros_like(pixel_all[:n_pad])])
-        rng_all = torch.cat([rng_all, torch.zeros_like(rng_all[:n_pad])])
-    tiles = [(s, min(s + tile_size, pixel_all.shape[0]))
-             for s in range(0, N, tile_size)]
-    fb = [torch.zeros((e - s, channels), dtype=torch.float32, device=dev)
-          for s, e in tiles]
-    rngs = [rng_all[s:e] for s, e in tiles]
-    done = 0
-    if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        done = _load_tiles(checkpoint_path, fb, rngs)
-    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
-    t0 = time.perf_counter()
-    for p in range(max(spp - done, 0)):
-        for k, (s, e) in enumerate(tiles):
-            contrib, rngs[k], _ = _one_sample(scene, meta, rngs[k],
-                                              pixel_all[s:e], itype, channels,
-                                              LAYER_BY_NAME[layer])
-            fb[k] += contrib
-            nonfinite += _nonfinite(contrib[:N - s])
-        if ckpt and (p + 1) % checkpoint_every == 0:
-            from .utils import checkpoint as CKPT
-            CKPT.save_checkpoint(
-                checkpoint_path, ([f.cpu().numpy() for f in fb],
-                                  [r.cpu().numpy().astype(np.uint32)
-                                   for r in rngs]), step=done + p + 1)
-        _progress(progress, done + p + 1, spp)
-    if progress:
-        print()
-    img = (torch.cat(fb)[:N].cpu().numpy()
-           / np.float32(spp)).reshape(H, W, channels)
-    total = time.perf_counter() - t0
-    if return_timing:
-        return img, dict(total_s=total, spp=spp, rays=N * spp,
-                         nonfinite=int(nonfinite))
-    return img
+    with span('hc3.render'):
+        ckpt = bool(checkpoint_path and checkpoint_every)
+        padded = ckpt or resume
+        if not padded and use_megakernel(scene, meta, integrator, channels,
+                                         layer):
+            return MK.render(scene, meta, spp=spp, integrator=integrator,
+                             regen=regen, return_timing=return_timing)
+        spp = spp or meta.spp
+        itype = INTEGRATOR_BY_NAME[integrator]
+        dev = scene.proj_inv.device
+        W, H = meta.width, meta.height
+        N = W * H
+        pixel_all = torch.arange(N, dtype=torch.int64, device=dev)
+        rng_all = RNG.gen_init(pixel_all)
+        if padded:
+            n_pad = -(-N // tile_size) * tile_size - N
+            pixel_all = torch.cat([pixel_all,
+                                   torch.zeros_like(pixel_all[:n_pad])])
+            rng_all = torch.cat([rng_all, torch.zeros_like(rng_all[:n_pad])])
+        tiles = [(s, min(s + tile_size, pixel_all.shape[0]))
+                 for s in range(0, N, tile_size)]
+        fb = [torch.zeros((e - s, channels), dtype=torch.float32, device=dev)
+              for s, e in tiles]
+        rngs = [rng_all[s:e] for s, e in tiles]
+        done = 0
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            done = _load_tiles(checkpoint_path, fb, rngs)
+        nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        for p in range(max(spp - done, 0)):
+            for k, (s, e) in enumerate(tiles):
+                contrib, rngs[k], _ = _one_sample(
+                    scene, meta, rngs[k], pixel_all[s:e], itype, channels,
+                    LAYER_BY_NAME[layer])
+                fb[k] += contrib
+                nonfinite += _nonfinite(contrib[:N - s])
+            if ckpt and (p + 1) % checkpoint_every == 0:
+                from .utils import checkpoint as CKPT
+                CKPT.save_checkpoint(
+                    checkpoint_path, ([f.cpu().numpy() for f in fb],
+                                      [r.cpu().numpy().astype(np.uint32)
+                                       for r in rngs]), step=done + p + 1)
+            _progress(progress, done + p + 1, spp)
+        if progress:
+            print()
+        with span('hc3.sync.readback'):
+            img = (torch.cat(fb)[:N].cpu().numpy()
+                   / np.float32(spp)).reshape(H, W, channels)
+        total = time.perf_counter() - t0
+        if return_timing:
+            return img, dict(total_s=total, spp=spp, samples=N * spp,
+                             nonfinite=int(nonfinite))
+        return img

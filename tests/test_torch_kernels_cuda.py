@@ -27,7 +27,8 @@ batched route of what the megakernel refuses) against its plain version
 on every lane (its Moller-Trumbore test rounds op by op, as the plain
 version's): the camera and random rays, and the pass's camera, shadow and
 first-bounce queries; and that scene's pass on the card against the
-CPU's.  K1's spectral variant (``-DHC3_SPECTRAL=1``) on the spectral box,
+CPU's.  A regen frame's ``launches`` and ``iters`` against a wrap of
+``regen_pass``.  K1's spectral variant (``-DHC3_SPECTRAL=1``) on the spectral box,
 both entry points, every lane, for each integrator.  K1's pools and table
 layouts, for the GLTF, zoo and spectral variants: lane counts that are
 no multiple of a pool or a block, a ``first`` launch alone and single
@@ -651,6 +652,29 @@ def test_mega_regen_kernel_matches_plain(cuda):
     p = TMK.regen_iters_plain(pk, xy, sf_p, su_p, 16, depth)
     close, equal, err = TMK.lanes_agree(k, p, TMK.RU_NROWS)
     assert close == 1.0 and equal == 1.0, (close, equal, err)
+
+
+def test_regen_frame_counts_its_launches_and_iterations(cuda, monkeypatch):
+    """A regen frame's timing on the card: ``launches`` equal the calls a
+    wrap of ``megakernel.regen_pass`` sees (``render`` reaches the wrapper
+    through the module's name), ``iters`` the iterations they ask for."""
+    from hydracore3_torch import render as R
+    from hydracore3_torch.scene import synth
+    scene, meta = synth.box_scene(128, 96, 6, textured=True, device=cuda)
+    seen = dict(calls=0, iters=0)
+    inner = TMK.regen_pass
+
+    def regen_pass(pk, xy, sf, su, k, *args, **kw):
+        seen['calls'] += 1
+        seen['iters'] += int(k)
+        return inner(pk, xy, sf, su, k, *args, **kw)
+
+    regen_pass.launches = inner.launches
+    monkeypatch.setattr(TMK, 'regen_pass', regen_pass)
+    _, timing = R.render(scene, meta, spp=64, regen=True, return_timing=True)
+    assert seen['calls'] >= 2 and timing['launches'] == seen['calls']
+    assert timing['iters'] == seen['iters']
+    assert timing['samples'] >= 128 * 96 * 64
 
 
 def test_wrappers_refuse_wrong_inputs(cuda):

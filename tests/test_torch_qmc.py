@@ -175,7 +175,7 @@ def test_render_qmc_tiles_match_jax(libs):
                                   tile_size=256))
     ti, timing = TR.render_qmc(ts, tm, spp=2, integrator='mispt',
                                tile_size=256, return_timing=True)
-    assert timing['nonfinite'] == 0 and timing['rays'] == 2 * W * H
+    assert timing['nonfinite'] == 0 and timing['samples'] == 2 * W * H
     within = np.abs(ti - ji).max(-1) <= 1e-4
     assert within.mean() >= LANES_MIN, f'{within.mean():.4%}'
     # the same samples over another tiling: JAX's streams depend on the
